@@ -1,0 +1,296 @@
+"""Seed chaining and chain filtering.
+
+Ports the semantics of mem_chain / merge_seed_to_chain / mem_chain_weight /
+mem_chain_flt / mem_flt_chained_seeds (lib/aln/memchain.c:
+218-568). The reference clusters seeds into a B-tree keyed by the first seed's
+reference position; a sorted list + bisect reproduces the same lower-neighbor
+lookups and in-order traversal.
+
+Copy of biscuit_tpu/align/chain.py. Only its imports differ: FMNumpy comes
+from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
+so the port never imports jax. mem_chain_batch (the device chain scan,
+which needs jax) is left out until the chain kernel is ported.
+tests/test_torch_engine.py holds the copy to its source.
+"""
+import bisect
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+from biscuit_tpu.utils.ksort import introsort
+from biscuit_tpu.config import MemOpt
+from ..ops.fm import FMNumpy
+from biscuit_tpu.ops import sw
+from biscuit_tpu.align import bns as bnsmod
+from . import trace
+from .smem import collect_intv
+
+MEM_SHORT_EXT = 50
+MEM_SHORT_LEN = 200
+MEM_HSP_COEF = 1.1
+MEM_MINSC_COEF = 5.5
+MEM_SEEDSW_COEF = 0.05
+
+
+@dataclass
+class Seed:
+    rbeg: int
+    qbeg: int
+    len: int
+    score: int
+
+
+@dataclass
+class Chain:
+    pos: int
+    seeds: List[Seed]
+    seeds_extra: List[Seed] = field(default_factory=list)
+    rid: int = -1
+    is_alt: int = 0
+    w: int = 0
+    kept: int = 0
+    first: int = -1
+    frac_rep: float = 0.0
+
+
+def getbss(parent: int, idx, rb: int) -> int:
+    """mem_getbss (memchain.c:265): (rb > l_pac) == parent ? 1 : 0."""
+    return 1 if (rb > idx.l_pac) == bool(parent) else 0
+
+
+def chain_weight(c: Chain) -> int:
+    w = 0
+    end = 0
+    for s in c.seeds:
+        if s.qbeg >= end:
+            w += s.len
+        elif s.qbeg + s.len > end:
+            w += s.qbeg + s.len - end
+        end = max(end, s.qbeg + s.len)
+    tmp, w, end = w, 0, 0
+    for s in c.seeds:
+        if s.rbeg >= end:
+            w += s.len
+        elif s.rbeg + s.len > end:
+            w += s.rbeg + s.len - end
+        end = max(end, s.rbeg + s.len)
+    w = min(w, tmp)
+    return min(w, (1 << 30) - 1)
+
+
+def _merge_seed_to_chain(opt: MemOpt, l_pac: int, c: Chain, s: Seed, seed_rid: int) -> bool:
+    """memchain.c:227-256."""
+    last = c.seeds[-1]
+    if seed_rid != c.rid:
+        return False
+    if (s.qbeg >= c.seeds[0].qbeg and s.qbeg + s.len <= last.qbeg + last.len and
+            s.rbeg >= c.seeds[0].rbeg and s.rbeg + s.len <= last.rbeg + last.len):
+        c.seeds_extra.append(s)
+        return True
+    if (last.rbeg < l_pac or c.seeds[0].rbeg < l_pac) and s.rbeg >= l_pac:
+        return False
+    qdist = s.qbeg - last.qbeg
+    rdist = s.rbeg - last.rbeg
+    if (rdist >= 0 and qdist - rdist <= opt.w and rdist - qdist <= opt.w
+            and qdist - last.len < opt.max_chain_gap and rdist - last.len < opt.max_chain_gap):
+        c.seeds.append(s)
+        return True
+    return False
+
+
+def _l_rep(opt: MemOpt, mem) -> int:
+    """Read length covered by repetitive seeds (memchain.c:292-303)."""
+    l_rep = b = e = 0
+    for (sb, se, _x0, _x1, size) in mem:
+        if size <= opt.max_occ:
+            continue
+        if sb > e:
+            l_rep += e - b
+            b, e = sb, se
+        else:
+            e = max(e, se)
+    l_rep += e - b
+    return l_rep
+
+
+def mem_chain(opt: MemOpt, fm: FMNumpy, fmc: FMNumpy, idx, l_seq: int,
+              bisseq: np.ndarray, parent: int,
+              seeds_intv=None, sa_lookup=None) -> List[Chain]:
+    """memchain.c:268-393. `seeds_intv` may carry precomputed collect_intv
+    output and `sa_lookup(seed_idx, k, x0)` precomputed SA positions (both
+    from the batched device path)."""
+    l_pac = idx.l_pac
+    chains: List[Chain] = []
+    if l_seq < opt.min_seed_len:
+        return chains
+    mem = seeds_intv if seeds_intv is not None else collect_intv(opt, fm, fmc, bisseq)
+    l_rep = _l_rep(opt, mem)
+
+    keys: List[int] = []  # sorted chain positions (B-tree key order)
+    tree: List[Chain] = []
+
+    for seed_i, (sb, se, x0, _x1, size) in enumerate(mem):
+        slen = se - sb
+        k = 0
+        count = 0
+        while k < size and count < opt.max_occ and \
+                ((count > 5 and k < opt.max_occ) or count <= 5):
+            rbeg = sa_lookup(seed_i, k, x0) if sa_lookup is not None \
+                else fm.sa_s(x0 + k)
+            s = Seed(rbeg=rbeg, qbeg=sb, len=slen, score=slen)
+            rid = bnsmod.intv2rid(idx, s.rbeg, s.rbeg + s.len)
+            k += 1
+            if rid < 0:
+                continue
+            if (opt.bsstrand & 1) and getbss(parent, idx, s.rbeg) != opt.bsstrand >> 1:
+                continue
+            to_add = False
+            if tree:
+                # lower = chain with largest pos <= s.rbeg
+                j = bisect.bisect_right(keys, rbeg) - 1
+                if j < 0 or not _merge_seed_to_chain(opt, l_pac, tree[j], s, rid):
+                    to_add = True
+            else:
+                to_add = True
+            if to_add:
+                count += 1
+                c = Chain(pos=rbeg, seeds=[s], rid=rid,
+                          is_alt=1 if idx.anns[rid].is_alt else 0)
+                ins = bisect.bisect_right(keys, rbeg)
+                keys.insert(ins, rbeg)
+                tree.insert(ins, c)
+
+    for c in tree:
+        c.frac_rep = l_rep / l_seq
+    if trace.verbose >= 4:
+        # memchain.c:385-388; the reference computes (float)l_rep/l_seq
+        trace.out("[mem_chain] Found %d chains; Fraction of repetitive seeds: %.3f\n"
+                  % (len(tree), np.float32(l_rep) / np.float32(l_seq)))
+        trace.print_chains(idx, tree)
+    return tree
+
+
+def mem_chain_flt(opt: MemOpt, chns: List[Chain]) -> List[Chain]:
+    """memchain.c:406-488."""
+    if not chns:
+        return chns
+    kept_chains = []
+    for c in chns:
+        c.first = -1
+        c.kept = 0
+        c.w = chain_weight(c)
+        if c.w >= opt.min_chain_weight:
+            kept_chains.append(c)
+    chns = kept_chains
+    if not chns:
+        return chns
+    # exact ks_introsort(mem_flt) order (memchain.c:402,425): equal-weight
+    # chains land in partition order, and mem_chain_flt keeps the FIRST
+    # shadowed chain — tie order decides which chain survives
+    introsort(chns, lambda a, b: a.w > b.w)
+
+    def chn_beg(c):
+        return c.seeds[0].qbeg
+
+    def chn_end(c):
+        s = c.seeds[-1]
+        return s.qbeg + s.len
+
+    to_keep = [0]
+    chns[0].kept = 3
+    for i in range(1, len(chns)):
+        large_overlap = False
+        broke = False
+        for kidx in range(len(to_keep)):
+            ci = chns[i]
+            ck = chns[to_keep[kidx]]
+            b_max = max(chn_beg(ck), chn_beg(ci))
+            e_min = min(chn_end(ck), chn_end(ci))
+            if e_min > b_max and (not ck.is_alt or ci.is_alt):
+                li = chn_end(ci) - chn_beg(ci)
+                lj = chn_end(ck) - chn_beg(ck)
+                min_l = min(li, lj)
+                if e_min - b_max >= min_l * opt.mask_level and min_l < opt.max_chain_gap:
+                    large_overlap = True
+                    if ck.first < 0:
+                        ck.first = i
+                    if ci.w < ck.w * opt.drop_ratio and ck.w - ci.w >= opt.min_seed_len << 1:
+                        broke = True
+                        break
+        if not broke:
+            to_keep.append(i)
+            chns[i].kept = 2 if large_overlap else 3
+    for idx_ in to_keep:
+        c = chns[idx_]
+        if c.first >= 0:
+            chns[c.first].kept = 1
+    # cap the number of kept==1/2 chains at max_chain_extend
+    k = 0
+    i = 0
+    while i < len(chns):
+        if chns[i].kept not in (0, 3):
+            k += 1
+            if k >= opt.max_chain_extend:
+                break
+        i += 1
+    for j in range(i, len(chns)):
+        if chns[j].kept < 3:
+            chns[j].kept = 0
+    return [c for c in chns if c.kept != 0]
+
+
+def mem_flt_chained_seeds(opt: MemOpt, idx, l_query: int, query: np.ndarray,
+                          chns: List[Chain], parent: int) -> None:
+    """memchain.c:539-568 — rarely active for short reads."""
+    min_l = MEM_HSP_COEF * opt.min_chain_weight if opt.min_chain_weight \
+        else MEM_MINSC_COEF * math.log(l_query)
+    if min_l > MEM_SEEDSW_COEF * l_query:
+        _flt_chained_trace(idx, chns)
+        return
+    min_hsp_score = int(opt.a * min_l + 0.499)
+    for c in chns:
+        kept = []
+        for s in c.seeds:
+            s.score = _seed_sw(opt, idx, l_query, query, s, parent)
+            if s.score < 0 or s.score >= min_hsp_score:
+                s.score = s.len * opt.a if s.score < 0 else s.score
+                kept.append(s)
+        c.seeds = kept
+    _flt_chained_trace(idx, chns)
+
+
+def _flt_chained_trace(idx, chns) -> None:
+    # END_CHAIN_FLT (memchain.c:563-568) runs on both the short-read goto
+    # path and the normal fall-through
+    if trace.verbose >= 4:
+        trace.out("[mem_flt_chained_seeds] %d chains remained.\n" % len(chns))
+        trace.print_chains(idx, chns)
+
+
+def _seed_sw(opt: MemOpt, idx, l_query: int, query: np.ndarray, s: Seed,
+             parent: int) -> int:
+    """memchain.c:501-535 (mem_seed_sw)."""
+    if s.len >= MEM_SHORT_LEN:
+        return -1
+    l_pac = idx.l_pac
+    qb, qe = s.qbeg, s.qbeg + s.len
+    rb, re_ = s.rbeg, s.rbeg + s.len
+    mid = (rb + re_) >> 1
+    qb = max(qb - MEM_SHORT_EXT, 0)
+    qe = min(qe + MEM_SHORT_EXT, l_query)
+    rb = max(rb - MEM_SHORT_EXT, 0)
+    re_ = min(re_ + MEM_SHORT_EXT, l_pac << 1)
+    if rb < l_pac < re_:
+        if mid < l_pac:
+            re_ = l_pac
+        else:
+            rb = l_pac
+    if qe - qb >= MEM_SHORT_LEN or re_ - rb >= MEM_SHORT_LEN:
+        return -1
+    rseq, _rid, rb, re_ = bnsmod.fetch_seq(idx, rb, mid, re_)
+    mat = opt.ctmat if parent else opt.gamat
+    r = sw.sw_align(query[qb:qe], rseq, mat, opt.o_del, opt.e_del,
+                    opt.o_ins, opt.e_ins, xstart=True)
+    return r.score

@@ -1,0 +1,407 @@
+"""Device alignment engine (torch): SE reads through the device kernels.
+
+Port of DeviceAligner / prefill_setSAM / process_seqs_device of
+biscuit_tpu/align/device_engine.py. The host logic (chaining, region
+bookkeeping, SAM) is the same code, driven through the extension-request
+generator protocol (region.chain2region_gen). Output is identical to the
+host engine and to the JAX device engine (tests/test_torch_engine.py).
+
+Batch flow per call:
+  1. host: read clipping + in-silico conversion; (read, parent) lanes
+  2. host: SMEM seed collection (smem.collect_intv, the JAX engine's own
+     fallback, which gives the same seeds as its device seeder)
+  3. device: batched SA walks for the first SA_PREFETCH_CAP occurrences of
+     every seed (ops/seed_batch.sa_batch, K4)
+  4. host: chaining (chain.mem_chain) and chain filtering
+  5. device: banded extension (ops/sw_extend, K1), scheduled in rounds
+     across lanes
+  6. device: global alignment + traceback for every region SAM will print
+     (ops/sw_global, K2); lanes whose traceback overflows max_ops are
+     realigned by the scalar sw.sw_global
+  7. host: region merge, primary marking, SAM
+
+Every op runs on `device`: CUDA launches the kernels, the CPU runs their
+plain torch versions.
+"""
+import os
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from biscuit_tpu.config import MemOpt, MEM_F_PE
+from biscuit_tpu.ops import sw
+from biscuit_tpu.align.io_helpers import read_clipping
+
+from ..ops.seed_batch import FMPair, sa_batch
+from ..ops.sw_extend import sw_extend_batch
+from ..ops.sw_global import decode_cigars, global_traceback, sw_global_batch
+from . import sam as sammod
+from . import trace
+from .chain import mem_chain, mem_chain_flt, mem_flt_chained_seeds
+from .region import AlnRegs, chain2region_gen, merge_regions
+from .smem import collect_intv
+from .pipeline import AlignerState, bsconvert, worker2_se
+
+# stage wall-clock accumulator: seconds per stage, read by stage_report()
+_STAGE_T: Dict[str, float] = {}
+# global-alignment lanes whose traceback overflowed max_ops and were
+# realigned by the scalar sw.sw_global (a capacity contract, not a fallback)
+_OVERFLOW = {"traceback_overflow_lanes": 0}
+# stages whose work runs on the device (seeding and chaining stay on host)
+_DEVICE_STAGES = ("sa", "extend", "cigar")
+
+
+class _stage:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        _STAGE_T[self.name] = (_STAGE_T.get(self.name, 0.0)
+                               + time.perf_counter() - self.t0)
+
+
+def stage_report() -> Dict[str, float]:
+    """Per-stage seconds, the share of the device-dispatching stages, and
+    the count of traceback-overflow lanes."""
+    total = sum(_STAGE_T.values())
+    dev = sum(_STAGE_T.get(k, 0.0) for k in _DEVICE_STAGES)
+    rep = dict(_STAGE_T)
+    rep["total_s"] = total
+    rep["device_share"] = dev / total if total else 0.0
+    rep.update(_OVERFLOW)
+    return rep
+
+
+def reset_stages() -> None:
+    _STAGE_T.clear()
+    _OVERFLOW["traceback_overflow_lanes"] = 0
+
+
+SA_PREFETCH_CAP = 64
+# reads per device sweep (as in the JAX engine)
+DEVICE_BATCH = int(os.environ.get("BISCUIT_TPU_DEVICE_BATCH", "16384"))
+
+
+class DeviceAligner:
+    def __init__(self, st: AlignerState, device):
+        self.st = st
+        self.device = torch.device(device)
+        self.fmpair = FMPair.from_index(st.idx, self.device)
+        self._mats_cache = None
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def _collect_seeds(self, opt: MemOpt, lanes: List[Tuple]):
+        """lanes: list of (seq, parent). Returns per-lane seed lists and SA
+        position lookups."""
+        st = self.st
+        with _stage("seed"):
+            seeds = []
+            for s, p in lanes:
+                fm, fmc = st.fm_pair(p)
+                seeds.append(collect_intv(opt, fm, fmc, bsconvert(s, p)))
+
+        with _stage("sa"):
+            # batched SA for up to SA_PREFETCH_CAP occurrences per seed
+            jobs_which: List[int] = []
+            jobs_rank: List[int] = []
+            index: List[List[Tuple[int, int]]] = []  # per lane: (offset, kmax)
+            off = 0
+            for (_s, p), lane_seeds in zip(lanes, seeds):
+                lane_idx = []
+                for (_sb, _se, x0, _x1, size) in lane_seeds:
+                    kmax = min(size, SA_PREFETCH_CAP)
+                    lane_idx.append((off, kmax))
+                    jobs_which.extend([p] * kmax)
+                    jobs_rank.extend(range(x0, x0 + kmax))
+                    off += kmax
+                index.append(lane_idx)
+            if jobs_rank:
+                rdt = np.int64 if self.fmpair.wide else np.int32
+                pos = sa_batch(self.fmpair,
+                               self._tensor(np.asarray(jobs_which, np.int32)),
+                               self._tensor(np.asarray(jobs_rank, rdt)))
+                pos = pos.cpu().numpy()
+            else:
+                pos = np.zeros(0, np.int32)
+
+        lookups = []
+        for (_s, p), lane_idx in zip(lanes, index):
+            fm = st.fm[p]
+
+            def mk(lane_idx=lane_idx, fm=fm):
+                def sa_lookup(seed_i, k, x0):
+                    o, kmax = lane_idx[seed_i]
+                    if k < kmax:
+                        return int(pos[o + k])
+                    return fm.sa_s(x0 + k)  # beyond prefetch: scalar walk
+                return sa_lookup
+            lookups.append(mk())
+        return seeds, lookups
+
+    # ------------------------------------------------------------------
+    def _extend_scheduled(self, opt: MemOpt, jobs: List):
+        """jobs: generators yielding 6-tuples (qs, rs, aw, pen, h0, parent).
+        Runs them all to completion with batched device SW rounds."""
+        active: List[list] = []
+        for gen in jobs:
+            try:
+                active.append([gen, next(gen)])
+            except StopIteration:
+                pass
+        while active:
+            B = len(active)
+            Lq = max(max(len(e[1][0]), 1) for e in active)
+            Lt = max(max(len(e[1][1]), 1) for e in active)
+            q = np.zeros((B, Lq), np.int32)
+            t = np.zeros((B, Lt), np.int32)
+            qlens = np.ones(B, np.int32)
+            tlens = np.ones(B, np.int32)
+            ws = np.ones(B, np.int32)
+            ebs = np.zeros(B, np.int32)
+            h0s = np.ones(B, np.int32)
+            msel = np.zeros(B, np.int32)
+            for i, (_gen, (qs, rs, aw, pen, h0, parent)) in enumerate(active):
+                q[i, :len(qs)] = qs
+                qlens[i] = len(qs)
+                t[i, :len(rs)] = rs
+                tlens[i] = len(rs)
+                ws[i] = aw
+                ebs[i] = pen
+                h0s[i] = h0
+                msel[i] = parent
+            T = self._tensor
+            out = sw_extend_batch(T(q), T(qlens), T(t), T(tlens),
+                                  self._mats(opt), T(msel),
+                                  opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                                  T(ws), T(ebs), opt.zdrop, T(h0s))
+            res = out.cpu().numpy()  # [6, B]: score,qle,tle,gtle,gscore,max_off
+            nxt = []
+            for i, entry in enumerate(active):
+                r = tuple(int(x) for x in res[:, i])
+                try:
+                    entry[1] = entry[0].send(r)
+                    nxt.append(entry)
+                except StopIteration:
+                    pass
+            active = nxt
+
+    def _mats(self, opt: MemOpt) -> torch.Tensor:
+        if self._mats_cache is None:
+            self._mats_cache = self._tensor(
+                np.stack([opt.gamat, opt.ctmat]).astype(np.int32))
+        return self._mats_cache
+
+    # ------------------------------------------------------------------
+    def sw_global_batch(self, opt: MemOpt, requests):
+        """Batched ksw_global2 + CIGAR on the device (ops/sw_global).
+        requests: list of (key, query, rseq, w, parent). Returns
+        {key: (score, cigar)} identical to sw.sw_global. The lanes are swept
+        in chunks that bound the direction tensor z to
+        BISCUIT_TPU_GLOBAL_Z_MB (Lq*Lt bytes per lane)."""
+        out = {}
+        if not requests:
+            return out
+        Lq = max(len(r[1]) for r in requests)
+        Lt = max(len(r[2]) for r in requests)
+        z_budget = int(os.environ.get("BISCUIT_TPU_GLOBAL_Z_MB", "512")) << 20
+        max_lanes = min(16384, max(128, z_budget // max(1, Lq * Lt)))
+        for c0 in range(0, len(requests), max_lanes):
+            out.update(self._sw_global_chunk(opt, requests[c0:c0 + max_lanes]))
+        return out
+
+    def _sw_global_chunk(self, opt: MemOpt, reqs):
+        out = {}
+        B = len(reqs)
+        Lq = max(max(len(r[1]) for r in reqs), 1)
+        Lt = max(max(len(r[2]) for r in reqs), 1)
+        q = np.full((B, Lq), 4, np.int32)
+        t = np.full((B, Lt), 4, np.int32)
+        qlens = np.ones(B, np.int32)
+        tlens = np.ones(B, np.int32)
+        ws = np.ones(B, np.int32)
+        msel = np.zeros(B, np.int32)
+        for i, (_key, qq, rr, w, parent) in enumerate(reqs):
+            q[i, :len(qq)] = qq
+            qlens[i] = len(qq)
+            t[i, :len(rr)] = rr
+            tlens[i] = len(rr)
+            ws[i] = w
+            msel[i] = 1 if parent else 0
+        T = self._tensor
+        qlens_t, tlens_t, ws_t = T(qlens), T(tlens), T(ws)
+        score, z = sw_global_batch(T(q), qlens_t, T(t), tlens_t,
+                                   self._mats(opt), T(msel), opt.o_del,
+                                   opt.e_del, opt.o_ins, opt.e_ins, ws_t)
+        ops, n_ops, ov = global_traceback(z, qlens_t, tlens_t, ws_t)
+        scores = score.cpu().numpy()
+        ovh = ov.cpu().numpy()
+        # an overflowed lane's op buffer is incomplete (n_ops > max_ops):
+        # decode nothing for it, it is realigned below
+        cigars = decode_cigars(ops.cpu().numpy(),
+                               np.where(ovh, 0, n_ops.cpu().numpy()))
+        for i, (key, qq, rr, w, parent) in enumerate(reqs):
+            if ovh[i]:
+                _OVERFLOW["traceback_overflow_lanes"] += 1
+                mat = (opt.ctmat if parent else opt.gamat)
+                out[key] = sw.sw_global(
+                    qq, rr, mat, opt.o_del, opt.e_del, opt.o_ins,
+                    opt.e_ins, int(w))
+            else:
+                out[key] = (int(scores[i]), cigars[i])
+        return out
+
+    # ------------------------------------------------------------------
+    def regs_for_batch(self, opt: MemOpt, seqs) -> List[AlnRegs]:
+        """worker1 for a batch of SE reads: one merged AlnRegs per read."""
+        st = self.st
+        idx = st.idx
+        # lane policy (bwamem.c:311-375): order matters for emission parity
+        lane_plan: List[Tuple[int, int]] = []  # (seq_idx, parent)
+        for i, _s in enumerate(seqs):
+            if not (opt.parent & 1) or (opt.parent >> 1):
+                lane_plan.append((i, 0))
+            if not (opt.parent & 1) or not (opt.parent >> 1):
+                lane_plan.append((i, 1))
+        lanes = [(seqs[i], p) for i, p in lane_plan]
+        seeds, lookups = self._collect_seeds(opt, lanes)
+
+        all_regs: List[AlnRegs] = [AlnRegs() for _ in seqs]
+        gens = []
+        with _stage("chain"):
+            for li, (si, parent) in enumerate(lane_plan):
+                s = seqs[si]
+                fm, fmc = st.fm_pair(parent)
+                chns = mem_chain(opt, fm, fmc, idx, s.l_seq,
+                                 bsconvert(s, parent), parent,
+                                 seeds_intv=seeds[li], sa_lookup=lookups[li])
+                chns = mem_chain_flt(opt, chns)
+                mem_flt_chained_seeds(opt, idx, s.l_seq, s.seq, chns, parent)
+                gens.append((chain2region_gen(opt, idx, s.l_seq, s.seq,
+                                              parent, chns, all_regs[si]),
+                             parent))
+        # The reference runs a read's two strand passes sequentially
+        # (bwamem.c:327-333): the second pass's containment checks must see
+        # the first pass's regions, and chain2region_gen captures reg0 =
+        # len(regs) when its body first runs. So lanes of the same read are
+        # chained into one sequential generator; different reads run in
+        # lockstep batches.
+        by_read: Dict[int, List] = {}
+        for gen_parent, (si, _p) in zip(gens, lane_plan):
+            by_read.setdefault(si, []).append(gen_parent)
+        with _stage("extend"):
+            self._extend_scheduled(
+                opt, [_chain_generators(lst) for lst in by_read.values()])
+
+        with _stage("chain"):
+            for si, s in enumerate(seqs):
+                merge_regions(opt, idx, s.seq, s.l_seq, all_regs[si])
+        return all_regs
+
+
+class _PendingSW(Exception):
+    """Raised by the recording global_fn: the request joined the batch."""
+
+
+def prefill_setSAM(opt: MemOpt, idx, dev: DeviceAligner, items) -> None:
+    """Fill reg.cigar/NM/ZC/ZR/md for every (seq, reg) on the device before
+    reg2sam runs (alnreg_setSAM is idempotent: prefilled regions are
+    skipped by the host calls, any missed region is computed on the host).
+
+    The band-doubling retry loop of mem_alnreg_setSAM
+    (mem_alnreg_format.c:56-70) is driven at batch level: each round
+    re-enters alnreg_setSAM with a cache-backed global_fn; an uncached
+    (region, w) records its request and raises, and the round's requests
+    run as ONE device sweep."""
+    cache = {}
+    pending = [(s, r) for s, r in items if r.n_cigar == 0]
+    while pending:
+        requests = []
+        seen = set()
+
+        def make_fn(reg):
+            def fn(query, rseq, w):
+                key = (id(reg), int(w))
+                if key in cache:
+                    return cache[key]
+                if key not in seen:
+                    seen.add(key)
+                    requests.append((key, query, rseq, int(w), reg.parent))
+                raise _PendingSW
+            return fn
+
+        nxt = []
+        for seq, reg in pending:
+            try:
+                sammod.alnreg_setSAM(opt, idx, seq, reg,
+                                     global_fn=make_fn(reg))
+            except _PendingSW:
+                nxt.append((seq, reg))
+        if not requests:
+            break
+        cache.update(dev.sw_global_batch(opt, requests))
+        pending = nxt
+
+
+def _setSAM_candidates(opt: MemOpt, seq, regs):
+    """Over-approximate the regions reg2sam will format (score>=T or
+    within the XA drop ratio of the best; unmapped rb/re excluded)."""
+    best = max((r.score for r in regs), default=0)
+    floor = min(opt.T, best * opt.XA_drop_ratio)
+    return [(seq, r) for r in regs
+            if r.rb >= 0 and r.re >= 0 and r.score >= floor]
+
+
+def _chain_generators(gen_parent_list):
+    """Run several (gen, parent) sequentially as one generator, tagging each
+    yielded 5-tuple request with its lane's parent (for matrix selection)."""
+    for gen, parent in gen_parent_list:
+        try:
+            req = next(gen)
+        except StopIteration:
+            continue
+        while True:
+            result = yield req + (parent,)
+            try:
+                req = gen.send(result)
+            except StopIteration:
+                break
+
+
+def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
+                        pes0=None, rg_id: str = "",
+                        engine: DeviceAligner = None, device=None) -> None:
+    """mem_process_seqs with the device-backed worker1, SE only. Pass an
+    `engine` or the `device` to build one on."""
+    if opt.flag & MEM_F_PE:
+        raise NotImplementedError(
+            "paired-end align on the torch engine needs mate rescue on the "
+            "device (ROADMAP.md, Queue 1: K7 mate rescue and PE)")
+    if engine is None:
+        if device is None:
+            raise ValueError("process_seqs_device needs an engine or a device")
+        engine = DeviceAligner(st, device)
+    for s in seqs:
+        read_clipping(s, opt.adaptor1, opt)
+    all_regs: List[AlnRegs] = []
+    for lo in range(0, len(seqs), DEVICE_BATCH):
+        all_regs.extend(engine.regs_for_batch(opt, seqs[lo:lo + DEVICE_BATCH]))
+    # device-side CIGAR: batch-prefill alnreg_setSAM results before the
+    # host worker2 loop (skipped at -v4: the byte-exact debug traces
+    # interleave setSAM output in host order)
+    if trace.verbose < 4:
+        with _stage("cigar"):
+            items = []
+            for i, s in enumerate(seqs):
+                items.extend(_setSAM_candidates(opt, s, all_regs[i]))
+            prefill_setSAM(opt, st.idx, engine, items)
+    with _stage("worker2"):
+        for i, s in enumerate(seqs):
+            worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id)

@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Bring-up check of the torch port (biscuit_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one line each (more for the kernel table):
+  1. the card: nvidia-smi name and power limit, compute capability
+  2. build the three CUDA sources of the align slice with nvcc
+  3. each kernel against its plain torch version on the card, on
+     numpy-seeded inputs at the shapes of the align path: exact equality
+     (torch.equal), and both times from CUDA events
+  4. the align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS reads
+     (tools/make_testdata.py, plus SNPs and small indels so that global
+     alignment has work), the index built in-process, then the port's
+     `align` CLI on cuda; its first 512 reads' SAM must equal the port's
+     host engine's byte for byte
+  5. no jax module was imported
+Then a JSON line with the kernel table and, last, the result line. Any
+failure raises and exits nonzero; nothing falls back to the CPU.
+"""
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED = 7
+GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
+N_CHECK = 512            # reads whose SAM is held to the host engine
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() from CUDA events, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def compare(name, got, want):
+    """Exact equality of two tensors (or tuples of them) on the card;
+    returns the max absolute difference (0 when equal)."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                 f"{w.shape}/{w.dtype}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: kernel != plain (max |d| {err})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3 inputs (numpy-seeded, the shapes the align path gives each kernel)
+# ---------------------------------------------------------------------------
+
+def ext_case(rng, B, Lq, Lt, w_val=None):
+    """K1 lanes as test_pallas_sw builds them: half extend a planted match
+    with a few edits; w_val set: the narrowing-adversarial mix."""
+    import numpy as np
+    from biscuit_tpu.config import MemOpt
+    opt = MemOpt()
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
+    L = min(Lq, Lt)
+    for b in range(B):
+        k = b % 4 if w_val is not None else (0 if b % 2 == 0 else 3)
+        if k == 0:
+            n = L - int(rng.integers(0, 5))
+            t[b, :n] = q[b, :n]
+            for _ in range(int(rng.integers(0, 4))):
+                t[b, int(rng.integers(0, n))] = rng.integers(0, 4)
+        elif k == 1:
+            t[b, :L // 3] = q[b, :L // 3]
+        elif k == 2:
+            t[b, L // 2:L] = q[b, :L - L // 2]
+    qlens = rng.integers(Lq // 2 if w_val is None else 8, Lq + 1, B)
+    tlens = rng.integers(Lt // 2, Lt + 1, B)
+    w = np.full(B, opt.w if w_val is None else w_val, np.int32)
+    bonus = np.where(rng.random(B) < 0.5, opt.pen_clip5, 0)
+    h0 = rng.integers(1, 60, B)
+    msel = rng.integers(0, 2, B)
+    mats = np.stack([opt.gamat, opt.ctmat])
+    return opt, [a.astype(np.int32) for a in
+                 (q, qlens, t, tlens, mats, msel, w, bonus, h0)]
+
+
+def glob_case(rng, B, Lq, Lt):
+    """K2 lanes: query ~150, target a mutated copy (SNPs and indels) ~160,
+    band at least |tlen - qlen| + 3 as gen_cigar guarantees."""
+    import numpy as np
+    q = np.full((B, Lq), 4, np.int32)
+    t = np.full((B, Lt), 4, np.int32)
+    qlens = rng.integers(Lq - 10, Lq + 1, B).astype(np.int32)
+    tlens = np.zeros(B, np.int32)
+    for b in range(B):
+        qq = rng.integers(0, 4, qlens[b])
+        tt = qq.copy()
+        for _ in range(int(rng.integers(1, 12))):
+            p, r = int(rng.integers(0, len(tt))), rng.random()
+            if r < 0.6:
+                tt[p] = rng.integers(0, 4)
+            elif r < 0.8:
+                tt = np.delete(tt, p)
+            else:
+                tt = np.insert(tt, p, rng.integers(0, 4))
+        tt = tt[:Lt]
+        q[b, :len(qq)], t[b, :len(tt)] = qq, tt
+        tlens[b] = len(tt)
+    w = np.maximum(rng.integers(3, 40, B), np.abs(tlens - qlens) + 3)
+    msel = rng.integers(0, 2, B).astype(np.int32)
+    return q, qlens, t, tlens, msel, w.astype(np.int32)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "biscuit_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]  # + the data helper
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        return smoke(work)
+
+
+def smoke(work: str) -> int:
+    import numpy as np
+    import torch
+
+    # 1. the card
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    say(f"[1] card: {card}; capability {torch.cuda.get_device_capability(0)}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 2. build
+    from biscuit_tpu_torch import kernels
+    from biscuit_tpu_torch.ops import seed_batch, sw_extend, sw_global
+    t0 = time.perf_counter()
+    for lib in (sw_extend._lib, sw_global._lib, seed_batch._lib):
+        lib()
+    say(f"[2] built {sorted(kernels.BUILD_SECONDS) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s; per source "
+        f"{json.dumps({k: round(v, 2) for k, v in kernels.BUILD_SECONDS.items()})}")
+
+    # the phase-4 data come first: K4 walks the phase-4 index. The generator
+    # makes no indels and few mismatches, which would leave global alignment
+    # (K2) without work: SNPs at a human density and an indel in every 16th
+    # read give it some, as real reads do.
+    from torch_testdata import make_dataset
+    t0 = time.perf_counter()
+    fa, fq, idx = make_dataset(work, genome_size=GENOME, n_reads=N_READS,
+                               read_len=READ_LEN, seed=SEED, snp_rate=0.001,
+                               indel_every=16)
+    say(f"[3] data: {GENOME} bp genome, {N_READS} x {READ_LEN} bp reads, index "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    # 3. each kernel against its plain version on the card
+    rng = np.random.default_rng(SEED)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    table = []
+
+    def row(name, source, replaces, err, ms, plain_ms, shape):
+        table.append({"name": name, "route": "cuda",
+                      "source": f"biscuit_tpu_torch/kernels/{source}",
+                      "replaces": replaces, "launches": 0,
+                      "max_abs_err": err, "ms": round(ms, 4),
+                      "plain_ms": round(plain_ms, 4)})
+        say(f"[3] {name} {shape}: kernel == plain (max |d| {err}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+
+    # K1 at the engine's shapes, then the adversarial band widths
+    err, ms, pms = 0, 0.0, 0.0
+    for w_val in (None, 1, 2, 5, 17):
+        opt, a = ext_case(rng, 4096, 150, 300, w_val)
+        q, ql, t, tl, mats, msel, w, bonus, h0 = (T(x) for x in a)
+        sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+        mat_b = mats[msel.long()].reshape(-1, 25)
+        wc = sw_extend.band_clamp(ql, w, bonus, mats, *sc)
+        for zdrop in ((opt.zdrop,) if w_val is None else (0, 10, opt.zdrop)):
+            k = lambda: sw_extend.sw_extend_batch(q, ql, t, tl, mats, msel, *sc,
+                                                  w, bonus, zdrop, h0)
+            p = lambda: sw_extend.sw_extend_batch_plain(q, ql, t, tl, mat_b, wc,
+                                                        h0, *sc, zdrop)
+            err = max(err, compare(f"sw_extend w={w_val} zdrop={zdrop}", k(), p()))
+            if w_val is None:
+                ms, pms = cuda_ms(k, 20), cuda_ms(p, 3)
+    row("sw_extend", "sw_extend.cu", "biscuit_tpu/ops/pallas_sw.py:58",
+        err, ms, pms, "B=4096 Lq=150 Lt<=300, w in {100,1,2,5,17}")
+
+    # K2: DP and traceback
+    q, ql, t, tl, msel, w = (T(x) for x in glob_case(rng, 2048, 150, 160))
+    mats = T(np.stack([opt.gamat, opt.ctmat]).astype(np.int32))
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    mat_b = mats[msel.long()].reshape(-1, 25)
+    tl1, w1 = tl.clamp(min=1), w.clamp(min=1)
+    kd = lambda: sw_global.sw_global_batch(q, ql, t, tl, mats, msel, *sc, w)
+    pd = lambda: sw_global.sw_global_batch_plain(q, ql, t, tl1, mat_b, w1, *sc)
+    (ks, kz), (ps, pz) = kd(), pd()
+    err = compare("sw_global", (ks, kz), (ps, pz))
+    row("sw_global", "sw_global.cu", "biscuit_tpu/ops/pallas_global.py:133",
+        err, cuda_ms(kd, 20), cuda_ms(pd, 3), "B=2048 Lq=150 Lt=160")
+    kt = lambda: sw_global.global_traceback(kz, ql, tl, w)
+    pt = lambda: sw_global.global_traceback_plain(kz, ql, tl, w)
+    err = compare("global_traceback", kt(), pt())
+    # and lanes past max_ops: unrelated sequences under cheap gaps and dear
+    # mismatches need ~75 runs; the flags and truncated buffers must match
+    B2 = 256
+    q2 = T(rng.integers(0, 4, (B2, 120)).astype(np.int32))
+    t2 = T(rng.integers(0, 4, (B2, 120)).astype(np.int32))
+    l2, w2 = T(np.full(B2, 120, np.int32)), T(np.full(B2, 40, np.int32))
+    m2 = T(np.where(np.eye(5, dtype=bool), 1, -20)[None].astype(np.int32))
+    z0 = T(np.zeros(B2, np.int32))
+    _s2, z2 = sw_global.sw_global_batch(q2, l2, t2, l2, m2, z0, 1, 1, 1, 1, w2)
+    got2 = sw_global.global_traceback(z2, l2, l2, w2)
+    err = max(err, compare("global_traceback overflow", got2,
+                           sw_global.global_traceback_plain(z2, l2, l2, w2)))
+    n_ov = int(got2[2].sum())
+    if n_ov == 0:
+        raise AssertionError("the overflow case did not overflow")
+    row("global_traceback", "sw_global.cu",
+        "biscuit_tpu/ops/pallas_global.py:242", err, cuda_ms(kt, 20),
+        cuda_ms(pt, 3), f"B=2048 (+{n_ov} overflow lanes of {B2} checked)")
+
+    # K4: 2^20 random ranks on the phase-4 index
+    fm = seed_batch.FMPair.from_index(idx, dev)
+    n = 1 << 20
+    ranks = T(rng.integers(0, fm.seq_len + 1, n).astype(
+        np.int64 if fm.wide else np.int32))
+    which = T(rng.integers(0, 2, n).astype(np.int32))
+    ks = lambda: seed_batch.sa_batch(fm, which, ranks)
+    ps = lambda: seed_batch.sa_batch_plain(fm, which, ranks)
+    err = compare("sa_walk", ks(), ps())
+    # the other instance of the kernel: the same genome in the wide layout
+    # (int64 ranks, 12-column rows), which strands of 2^31 bases and more use
+    from biscuit_tpu.index.build import build_index
+    os.environ["BISCUIT_TPU_WIDE_INDEX"] = "1"
+    try:
+        fmw = seed_batch.FMPair.from_index(build_index(fa), dev)
+    finally:
+        del os.environ["BISCUIT_TPU_WIDE_INDEX"]
+    if not fmw.wide or fm.wide:
+        raise AssertionError("expected a narrow and a wide index")
+    ranks_w = ranks.long()
+    err = max(err, compare("sa_walk wide",
+                           seed_batch.sa_batch(fmw, which, ranks_w),
+                           seed_batch.sa_batch_plain(fmw, which, ranks_w)))
+    row("sa_walk", "sa_walk.cu", "biscuit_tpu/ops/seed_batch.py:1983", err,
+        cuda_ms(ks, 10), cuda_ms(ps, 2),
+        "2^20 ranks, narrow index (times), wide index (equality)")
+    # the port's scalar walk agrees on a sample
+    from biscuit_tpu_torch.ops.fm import FMNumpy
+    fms = {0: FMNumpy(idx.dau), 1: FMNumpy(idx.par)}
+    got = ks()[:2000].tolist()
+    for wh, r, g in zip(which[:2000].tolist(), ranks[:2000].tolist(), got):
+        if g != fms[wh].sa_s(r):
+            raise AssertionError(f"sa_walk rank {r}: {g} != {fms[wh].sa_s(r)}")
+
+    # 4. the align slice end to end, through the CLI entry point
+    from biscuit_tpu_torch import cli
+    from biscuit_tpu_torch.align import device_engine
+    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI
+    from biscuit_tpu.index.fmindex import BisIndex
+    from biscuit_tpu.io.fastq import fastq_iter, read_batch
+    from biscuit_tpu_torch.align.pipeline import AlignerState, process_seqs
+    os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    device_engine.reset_stages()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["align", fa, fq])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rep = device_engine.stage_report()
+    if rc != 0:
+        raise AssertionError(f"align exited {rc}")
+    sam = buf.getvalue()
+    body = [ln for ln in sam.splitlines() if not ln.startswith("@")]
+    prim = [ln.split("\t") for ln in body
+            if not int(ln.split("\t")[1]) & 0x900]
+    if len(prim) != N_READS or any(len(f) < 11 for f in prim):
+        raise AssertionError(f"{len(prim)} primary records for {N_READS} reads")
+    mapped = sum(1 for f in prim if not int(f[1]) & 4)
+    if mapped < 0.9 * N_READS:
+        raise AssertionError(f"only {mapped} of {N_READS} reads mapped")
+    for f in prim:
+        if not int(f[1]) & 4 and (int(f[3]) < 1 or f[5] == "*"):
+            raise AssertionError(f"bad mapped record {f[:6]}")
+    # the first N_CHECK reads through the port's host engine
+    opt = MemOpt()
+    opt.flag |= MEM_F_NO_MULTI
+    host = read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK]
+    for s in host:
+        s.comment = None
+    t1 = time.perf_counter()
+    process_seqs(opt, AlignerState(BisIndex.load(fa)), host, 0)
+    host_s = time.perf_counter() - t1
+    want = "".join(s.sam for s in host)
+    got = "".join(ln + "\n" for ln in body)
+    if not got.startswith(want):
+        raise AssertionError("device SAM differs from the host engine's "
+                             f"in the first {N_CHECK} reads")
+    n_ind = sum(1 for f in prim if "I" in f[5] or "D" in f[5])
+    say(f"[4] align: {N_READS} reads, {mapped} mapped, {n_ind} with I/D, "
+        f"first {N_CHECK} SAM byte-identical to the host engine "
+        f"({host_s:.1f} s on host)")
+    say(f"[4] stages (s): {json.dumps({k: round(v, 3) for k, v in rep.items()})}")
+    say(f"[4] traceback-overflow lanes realigned on host: "
+        f"{rep['traceback_overflow_lanes']}")
+    say(f"[4] launches: {json.dumps(launches)}")
+    say(f"[4] align wall {wall:.2f} s = {N_READS / wall:.1f} reads/s "
+        f"(engine stages {rep['total_s']:.2f} s) [{card}]")
+    for r in table:
+        r["launches"] = launches.get(r["name"], 0)
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']} never launched on the align path")
+
+    # 5. jax stayed out
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    say("[5] 'jax' not in sys.modules")
+
+    say(json.dumps({"kernels": table}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

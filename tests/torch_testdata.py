@@ -1,0 +1,64 @@
+"""Oracle-free test data for the torch port's tests.
+
+`make_dataset` runs tools/make_testdata.py and builds the index next to
+the FASTA (build_index(fa, prefix=fa)), so both the in-process engines and
+the `align` CLI find it. The conftest `small_dataset` fixture also needs
+the reference oracle binary; these tests do not.
+"""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
+                 read_len=None, snp_rate=None, indel_every=0):
+    """Writes genome.fa, its index and reads.fq into directory `d`; returns
+    (fasta path, reads path, the in-memory BisIndex). indel_every=k puts a
+    small deletion or insertion into two reads of every k (the generator
+    makes none), so that global alignment and its traceback have work."""
+    from biscuit_tpu.index.build import build_index
+    args = [sys.executable, os.path.join(REPO, "tools", "make_testdata.py"),
+            str(d), "--genome-size", str(genome_size), "--n-reads",
+            str(n_reads), "--n-chroms", str(n_chroms), "--seed", str(seed)]
+    if read_len is not None:
+        args += ["--read-len", str(read_len)]
+    if snp_rate is not None:
+        args += ["--snp-rate", str(snp_rate)]
+    subprocess.run(args, check=True, capture_output=True)
+    fq = os.path.join(str(d), "reads.fq")
+    if indel_every:
+        add_indels(fq, indel_every, seed)
+    fa = os.path.join(str(d), "genome.fa")
+    idx = build_index(fa, prefix=fa)
+    return fa, fq, idx
+
+
+def add_indels(fq, every, seed):
+    """Rewrite FASTQ `fq`: read i with i % every == every // 2 loses 1-3
+    bases, read i with i % every == 0 (i > 0) gains 1-2, at a position at
+    least 20 bases from either end."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    with open(fq) as f:
+        lines = f.read().splitlines()
+    for r in range(len(lines) // 4):
+        seq, qual = lines[4 * r + 1], lines[4 * r + 3]
+        if r % every not in (0, every // 2) or r == 0 or len(seq) < 60:
+            continue
+        p = int(rng.integers(20, len(seq) - 20))
+        if r % every == every // 2:
+            n = int(rng.integers(1, 4))
+            seq, qual = seq[:p] + seq[p + n:], qual[:p] + qual[p + n:]
+        else:
+            ins = "".join("ACGT"[int(x)] for x in rng.integers(0, 4, int(rng.integers(1, 3))))
+            seq, qual = seq[:p] + ins + seq[p:], qual[:p] + "I" * len(ins) + qual[p:]
+        lines[4 * r + 1], lines[4 * r + 3] = seq, qual
+    with open(fq, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def load_reads(path, n):
+    from biscuit_tpu.io.fastq import fastq_iter, read_batch
+    return read_batch(fastq_iter(str(path)), None, 1 << 60)[:n]
