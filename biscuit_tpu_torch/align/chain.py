@@ -6,11 +6,12 @@ mem_chain_flt / mem_flt_chained_seeds (lib/aln/memchain.c:
 reference position; a sorted list + bisect reproduces the same lower-neighbor
 lookups and in-order traversal.
 
-Copy of biscuit_tpu/align/chain.py. Only its imports differ: FMNumpy comes
+Copy of biscuit_tpu/align/chain.py. Its imports differ: FMNumpy comes
 from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. mem_chain_batch (the device chain scan,
-which needs jax) is left out until the chain kernel is ported.
-tests/test_torch_engine.py holds the copy to its source.
+so the port never imports jax. mem_chain_batch differs in its call into the
+chain scan, which is the port's (ops/chain_batch.py) on the tensors of a
+given device, and in leaving out the shape buckets. tests/test_torch_engine.py
+holds the rest of the copy to its source.
 """
 import bisect
 import math
@@ -18,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from biscuit_tpu.utils.ksort import introsort
 from biscuit_tpu.config import MemOpt
@@ -170,6 +172,114 @@ def mem_chain(opt: MemOpt, fm: FMNumpy, fmc: FMNumpy, idx, l_seq: int,
                   % (len(tree), np.float32(l_rep) / np.float32(l_seq)))
         trace.print_chains(idx, tree)
     return tree
+
+
+# device chain-scan capacity caps (lanes that would exceed them rerun the
+# exact host path; see ops/chain_batch.py's capacity contract)
+CHAIN_KMAX = 64     # occurrences per seed (== device_engine.SA_PREFETCH_CAP)
+CHAIN_NC = 64       # live chains per lane
+CHAIN_JMAX = 1024   # occurrence-stream length per lane
+
+
+def mem_chain_batch(opt: MemOpt, idx, jobs, device="cpu"):
+    """mem_chain for a batch of lanes with the B-tree scan on `device`
+    (ops/chain_batch.chain_scan_batch, one occurrence per lane per step);
+    the host prepares the occurrence stream (rid/bsstrand filters, SA
+    positions already batched by the device sa walk) and replays the
+    returned action log into Chain objects.
+
+    jobs: list of (l_seq, parent, mem, sa_lookup) exactly as mem_chain
+    consumes them. Returns a list with, per lane, either the Chain list
+    (bit-identical to mem_chain) or None — the lane exceeded a capacity
+    cap and must rerun on the host path."""
+    from ..ops.chain_batch import (K_APPEND, K_EXTRA, K_NEW,
+                                   chain_scan_batch)
+
+    out: List[Optional[List[Chain]]] = [None] * len(jobs)
+    lanes: List[int] = []
+    recs_all: List[list] = []
+    for li, (l_seq, parent, mem, sa_lookup) in enumerate(jobs):
+        if l_seq < opt.min_seed_len:
+            out[li] = []
+            continue
+        if any(size > CHAIN_KMAX for (_sb, _se, _x0, _x1, size) in mem):
+            continue  # host fallback
+        recs = []
+        for seed_i, (sb, se, x0, _x1, size) in enumerate(mem):
+            slen = se - sb
+            for k in range(int(size)):
+                rbeg = sa_lookup(seed_i, k, x0)
+                rid = bnsmod.intv2rid(idx, rbeg, rbeg + slen)
+                valid = rid >= 0
+                if valid and (opt.bsstrand & 1) and \
+                        getbss(parent, idx, rbeg) != opt.bsstrand >> 1:
+                    valid = False
+                recs.append((sb, slen, rbeg, 1 if valid else 0,
+                             rid if rid >= 0 else 0, k))
+        if len(recs) > CHAIN_JMAX:
+            continue  # host fallback
+        lanes.append(li)
+        recs_all.append(recs)
+    if not lanes:
+        return out
+
+    wide = idx.l_pac * 2 >= (1 << 31)
+    rdt = np.int64 if wide else np.int32
+    B = len(lanes)
+    J = max(len(r) for r in recs_all)
+    qbeg = np.zeros((J, B), np.int32)
+    slen = np.zeros((J, B), np.int32)
+    rbeg = np.zeros((J, B), rdt)
+    valid = np.zeros((J, B), np.int32)
+    rid = np.zeros((J, B), np.int32)
+    kocc = np.zeros((J, B), np.int32)
+    n_occ = np.zeros(B, np.int32)
+    for bi, recs in enumerate(recs_all):
+        n_occ[bi] = len(recs)
+        for j, (sb, sl, rb, vd, rr, k) in enumerate(recs):
+            qbeg[j, bi] = sb
+            slen[j, bi] = sl
+            rbeg[j, bi] = rb
+            valid[j, bi] = vd
+            rid[j, bi] = rr
+            kocc[j, bi] = k
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    log, ov = chain_scan_batch(
+        dev(qbeg), dev(slen), dev(rbeg), dev(valid), dev(rid), dev(kocc),
+        dev(n_occ), int(idx.l_pac), int(opt.w), int(opt.max_chain_gap),
+        int(opt.max_occ), NC=CHAIN_NC)
+    log = log.cpu().numpy()
+    ov = ov.cpu().numpy()
+
+    for bi, li in enumerate(lanes):
+        if ov[bi]:
+            continue  # host fallback
+        l_seq, _parent, mem, _lk = jobs[li]
+        chains: List[Chain] = []
+        for j, (sb, sl, rb, _vd, rr, _k) in enumerate(recs_all[bi]):
+            entry = int(log[j, bi])
+            kind = entry & 3
+            cid = entry >> 2
+            if kind == K_NEW:
+                chains.append(Chain(
+                    pos=rb, seeds=[Seed(rbeg=rb, qbeg=sb, len=sl, score=sl)],
+                    rid=rr, is_alt=1 if idx.anns[rr].is_alt else 0))
+            elif kind == K_APPEND:
+                chains[cid].seeds.append(
+                    Seed(rbeg=rb, qbeg=sb, len=sl, score=sl))
+            elif kind == K_EXTRA:
+                chains[cid].seeds_extra.append(
+                    Seed(rbeg=rb, qbeg=sb, len=sl, score=sl))
+        # B-tree order: ascending pos, creation order on ties (bisect_right
+        # inserts after equals — python sorted is stable, same tie order)
+        tree = sorted(chains, key=lambda c: c.pos)
+        l_rep = _l_rep(opt, mem)
+        for c in tree:
+            c.frac_rep = l_rep / l_seq
+        out[li] = tree
+    return out
 
 
 def mem_chain_flt(opt: MemOpt, chns: List[Chain]) -> List[Chain]:

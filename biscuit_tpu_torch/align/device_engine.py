@@ -8,11 +8,13 @@ host engine and to the JAX device engine (tests/test_torch_engine.py).
 
 Batch flow per call:
   1. host: read clipping + in-silico conversion; (read, parent) lanes
-  2. host: SMEM seed collection (smem.collect_intv, the JAX engine's own
-     fallback, which gives the same seeds as its device seeder)
+  2. device: 3-pass SMEM seed collection (ops/seed_batch.collect_intv_flat,
+     K3 with K5); lanes over its S-row capacity rerun smem.collect_intv
   3. device: batched SA walks for the first SA_PREFETCH_CAP occurrences of
      every seed (ops/seed_batch.sa_batch, K4)
-  4. host: chaining (chain.mem_chain) and chain filtering
+  4. device: the chain B-tree scan (chain.mem_chain_batch over
+     ops/chain_batch.chain_scan_batch, K6); lanes over its caps, and every
+     lane at -v4, run the host chain.mem_chain. Then host chain filtering
   5. device: banded extension (ops/sw_extend, K1), scheduled in rounds
      across lanes
   6. device: global alignment + traceback for every region SAM will print
@@ -34,23 +36,28 @@ from biscuit_tpu.config import MemOpt, MEM_F_PE
 from biscuit_tpu.ops import sw
 from biscuit_tpu.align.io_helpers import read_clipping
 
-from ..ops.seed_batch import FMPair, sa_batch
+from ..ops.seed_batch import FMPair, collect_intv_batch, sa_batch
 from ..ops.sw_extend import sw_extend_batch
 from ..ops.sw_global import decode_cigars, global_traceback, sw_global_batch
 from . import sam as sammod
 from . import trace
-from .chain import mem_chain, mem_chain_flt, mem_flt_chained_seeds
+from .chain import (mem_chain, mem_chain_batch, mem_chain_flt,
+                    mem_flt_chained_seeds)
 from .region import AlnRegs, chain2region_gen, merge_regions
 from .smem import collect_intv
 from .pipeline import AlignerState, bsconvert, worker2_se
 
 # stage wall-clock accumulator: seconds per stage, read by stage_report()
 _STAGE_T: Dict[str, float] = {}
-# global-alignment lanes whose traceback overflowed max_ops and were
-# realigned by the scalar sw.sw_global (a capacity contract, not a fallback)
-_OVERFLOW = {"traceback_overflow_lanes": 0}
-# stages whose work runs on the device (seeding and chaining stay on host)
-_DEVICE_STAGES = ("sa", "extend", "cigar")
+# lanes past a device capacity contract, each redone exactly on the host
+# (a capacity contract, not a fallback): seeding lanes over the seeder's S
+# rows (smem.collect_intv), chaining lanes over the scan's KMAX, JMAX or NC
+# (chain.mem_chain), global-alignment lanes whose traceback overflowed
+# max_ops (sw.sw_global)
+_OVERFLOW = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
+             "traceback_overflow_lanes": 0}
+# stages whose work runs on the device, as the JAX engine counts them
+_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar")
 
 
 class _stage:
@@ -67,7 +74,7 @@ class _stage:
 
 def stage_report() -> Dict[str, float]:
     """Per-stage seconds, the share of the device-dispatching stages, and
-    the count of traceback-overflow lanes."""
+    the counts of lanes redone on the host."""
     total = sum(_STAGE_T.values())
     dev = sum(_STAGE_T.get(k, 0.0) for k in _DEVICE_STAGES)
     rep = dict(_STAGE_T)
@@ -79,12 +86,28 @@ def stage_report() -> Dict[str, float]:
 
 def reset_stages() -> None:
     _STAGE_T.clear()
-    _OVERFLOW["traceback_overflow_lanes"] = 0
+    for k in _OVERFLOW:
+        _OVERFLOW[k] = 0
 
 
 SA_PREFETCH_CAP = 64
 # reads per device sweep (as in the JAX engine)
 DEVICE_BATCH = int(os.environ.get("BISCUIT_TPU_DEVICE_BATCH", "16384"))
+
+
+def pack_lanes(lanes):
+    """The seeder's input for (seq, parent) lanes: each read converted for
+    its strand, padded with 4. Returns (reads [B, L] int32, lens [B],
+    parents [B]) as numpy."""
+    B = len(lanes)
+    q = np.full((B, max([s.l_seq for s, _p in lanes] + [1])), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    parents = np.zeros(B, np.int32)
+    for i, (s, p) in enumerate(lanes):
+        q[i, :s.l_seq] = bsconvert(s, p)
+        lens[i] = s.l_seq
+        parents[i] = p
+    return q, lens, parents
 
 
 class DeviceAligner:
@@ -103,10 +126,15 @@ class DeviceAligner:
         position lookups."""
         st = self.st
         with _stage("seed"):
-            seeds = []
-            for s, p in lanes:
+            seeds, overflow = collect_intv_batch(
+                self.fmpair, *(self._tensor(a) for a in pack_lanes(lanes)),
+                opt)
+            # lanes over the seeder's S rows: the exact host seeder
+            for i in np.nonzero(overflow)[0]:
+                s, p = lanes[i]
                 fm, fmc = st.fm_pair(p)
-                seeds.append(collect_intv(opt, fm, fmc, bsconvert(s, p)))
+                seeds[i] = collect_intv(opt, fm, fmc, bsconvert(s, p))
+            _OVERFLOW["seed_overflow_lanes"] += int(overflow.sum())
 
         with _stage("sa"):
             # batched SA for up to SA_PREFETCH_CAP occurrences per seed
@@ -275,13 +303,26 @@ class DeviceAligner:
 
         all_regs: List[AlnRegs] = [AlnRegs() for _ in seqs]
         gens = []
+        # the chain scan on the device; the byte-exact -v4 trace mode takes
+        # the host path, as in the JAX engine
+        dev_chains = [None] * len(lane_plan)
+        if trace.verbose < 4:
+            with _stage("chain_scan"):
+                jobs = [(seqs[si].l_seq, parent, seeds[li], lookups[li])
+                        for li, (si, parent) in enumerate(lane_plan)]
+                dev_chains = mem_chain_batch(opt, idx, jobs, self.device)
+                _OVERFLOW["chain_host_lanes"] += sum(
+                    c is None for c in dev_chains)
         with _stage("chain"):
             for li, (si, parent) in enumerate(lane_plan):
                 s = seqs[si]
-                fm, fmc = st.fm_pair(parent)
-                chns = mem_chain(opt, fm, fmc, idx, s.l_seq,
-                                 bsconvert(s, parent), parent,
-                                 seeds_intv=seeds[li], sa_lookup=lookups[li])
+                chns = dev_chains[li]
+                if chns is None:
+                    fm, fmc = st.fm_pair(parent)
+                    chns = mem_chain(opt, fm, fmc, idx, s.l_seq,
+                                     bsconvert(s, parent), parent,
+                                     seeds_intv=seeds[li],
+                                     sa_lookup=lookups[li])
                 chns = mem_chain_flt(opt, chns)
                 mem_flt_chained_seeds(opt, idx, s.l_seq, s.seq, chns, parent)
                 gens.append((chain2region_gen(opt, idx, s.l_seq, s.seq,

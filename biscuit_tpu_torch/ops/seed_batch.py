@@ -1,15 +1,18 @@
-"""FM tables on the device and the batched SA walk.
+"""FM tables on the device, batched SMEM seeding and the batched SA walk.
 
 Port of the parts of biscuit_tpu/ops/seed_batch.py that the device engine
-needs while seeding stays on the host: the fused occ+BWT table
-(`_fused_tab`, copied as is), `FMPair` (the tables carried to the device)
-and `sa_batch` (the bwt_sa walk for a batch of ranks; the JAX version is
-an XLA while_loop, `seed_batch.py:sa_batch`).
+needs: the fused occ+BWT table (`_fused_tab`, copied as is), `FMPair` (the
+tables carried to the device), occ4 and the bidirectional extend (K5,
+`occ4_sel`/`extend_sel`), the 3-pass seed collection (K3, the contract of
+`collect_intv_flat_sm`) and `sa_batch` (K4, the bwt_sa walk for a batch of
+ranks).
 
-`sa_batch` launches the CUDA kernel kernels/sa_walk.cu on a CUDA device and
-runs `sa_batch_plain` on the CPU. torch on the CPU has no popcount and no
-`>>` or `~` on uint32, so the table is held as int32 (the uint32 bit
-pattern) and widened to int64 and masked before any shift.
+`collect_intv_flat` and `sa_batch` launch the CUDA kernels
+kernels/smem_seed.cu and kernels/sa_walk.cu on a CUDA device and run their
+plain versions on the CPU. torch on the CPU has no popcount and no `>>` or
+`~` on uint32, so the table is held as int32 (the uint32 bit pattern) and
+widened to int64 and masked before any shift; the plain versions compute
+every rank in int64 and hand back the rank dtype.
 """
 import ctypes
 from dataclasses import dataclass
@@ -17,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from biscuit_tpu.config import MEM_F_SELF_OVLP
 from biscuit_tpu.index.fmindex import BisIndex
 
 from .. import kernels
@@ -143,31 +147,14 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _inv_psi_plain(fm: FMPair, which: torch.Tensor, kk: torch.Tensor):
-    """One inverse-Psi step of seed_batch.sa_batch for int64 ranks."""
+    """One inverse-Psi step of seed_batch.sa_batch for int64 ranks: the
+    BWT character c at kk, then L2[c] + occ(c, kk)."""
     W = fm.tab.shape[-1]
     prim = fm.primary[which]
     j = kk - (kk >= prim).long()
-    row = fm.tab[which, j >> 6].long() & _M32           # [n, W]
-    words = row[:, W - 4:]                              # [n, 4]
-    wi = (j >> 4) & 3
-    tl = (~j) & 15
-    word = words.gather(1, wi[:, None])[:, 0]
-    c = (word >> (tl << 1)) & 3
-    # class-c count over words 0..wi, the selected word cut after position j
-    q = torch.arange(4, device=kk.device)[None, :]
-    sel = q == wi[:, None]
-    sh = (tl << 1)[:, None]
-    wm = torch.where(sel, (words >> sh) << sh, words)
-    inv = (~wm) & _M32
-    hi = torch.where((c & 2)[:, None] != 0, wm, inv) >> 1
-    lo = torch.where((c & 1)[:, None] != 0, wm, inv)
-    cnt = _popcount32(hi & lo & _M55)
-    cnt = cnt - torch.where(sel & (c == 0)[:, None], tl[:, None], 0)
-    cnt = torch.where(q <= wi[:, None], cnt, 0).sum(1)
-    acc = row.gather(1, c[:, None])[:, 0]
-    if fm.wide:
-        acc = acc | (row.gather(1, (c + 4)[:, None])[:, 0] << 32)
-    nxt = fm.L2[which, c] + acc + cnt
+    word = fm.tab[which, j >> 6, W - 4 + ((j >> 4) & 3)].long() & _M32
+    c = (word >> (((~j) & 15) << 1)) & 3
+    nxt = fm.L2[which, c] + _occ4(fm, which, kk).gather(1, c[:, None])[:, 0]
     return torch.where(kk == prim, torch.zeros_like(nxt), nxt)
 
 
@@ -190,8 +177,416 @@ def sa_batch_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# K5: occ4 and the bidirectional extend, plain torch
 # ---------------------------------------------------------------------------
+
+def _occ4(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """occ4_sel in int64: counts [n, 4] of each class in bwt[0..k] of
+    strand `which`; k in [-1, seq_len] (seed_batch.py:231-322)."""
+    W = fm.tab.shape[-1]
+    ksafe = k.clamp(0, fm.seq_len - 1)
+    kk = ksafe - (ksafe >= fm.primary[which]).long()
+    row = fm.tab[which, kk >> 6].long() & _M32             # [n, W]
+    acc = row[:, :4]
+    if fm.wide:
+        acc = acc | (row[:, 4:8] << 32)
+    w4 = row[:, W - 4:]
+    wi = ((kk >> 4) & 3)[:, None]
+    tl = ((~kk) & 15)[:, None]
+    q = torch.arange(4, device=k.device)[None, :]
+    sel = q == wi
+    sh = tl << 1
+    wm = torch.where(sel, (w4 >> sh) << sh, w4)              # cut after kk
+    inv = (~wm) & _M32
+    lo = wm & _M55
+    cnt = torch.stack([                                      # [n, word, class]
+        _popcount32((inv >> 1) & inv & _M55) - torch.where(sel, tl, 0),
+        _popcount32((inv >> 1) & lo),
+        _popcount32((wm >> 1) & inv & _M55),
+        _popcount32((wm >> 1) & lo)], -1)
+    res = acc + torch.where((q <= wi)[..., None], cnt, 0).sum(1)
+    L2 = fm.L2[which]
+    res = torch.where((k == fm.seq_len)[:, None], L2[:, 1:] - L2[:, :4], res)
+    return torch.where((k < 0)[:, None], 0, res)
+
+
+def _extend(fm: FMPair, which, x_q, x_o, s):
+    """bwt_extend in int64 (seed_batch.py:325-352): x_q is the rank on the
+    queried strand `which`, x_o the other one. Returns (new_xq, new_xo,
+    sizes), each [n, 4] by class."""
+    n = x_q.shape[0]
+    occ = _occ4(fm, torch.cat([which, which]), torch.cat([x_q - 1, x_q - 1 + s]))
+    tk, tl = occ[:n], occ[n:]
+    sizes = tl - tk
+    new_xq = fm.L2[which, :4] + 1 + tk
+    prim = fm.primary[which]
+    b3 = x_o + ((x_q <= prim) & (x_q + s - 1 >= prim)).long()  # crosses '$'
+    b2 = b3 + sizes[:, 3]
+    b1 = b2 + sizes[:, 2]
+    b0 = b1 + sizes[:, 1]
+    return new_xq, torch.stack([b0, b1, b2, b3], 1), sizes
+
+
+def occ4_sel_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """JAX occ4_sel: which [n] strand ids, k [n] ranks -> [n, 4] counts of
+    the rank dtype."""
+    return _occ4(fm, which.long(), k.long()).to(fm.rdt)
+
+
+def extend_sel_plain(fm: FMPair, which, x_q, x_o, s):
+    """JAX extend_sel (without its unused is_back): (new_xq, new_xo, sizes)
+    [n, 4] each, of the rank dtype."""
+    out = _extend(fm, which.long(), x_q.long(), x_o.long(), s.long())
+    return tuple(t.to(fm.rdt) for t in out)
+
+
+# ---------------------------------------------------------------------------
+# K3: mem_collect_intv for a batch of lanes, plain torch
+# ---------------------------------------------------------------------------
+
+SEED_CAP = 128  # S: rows a lane may hold; a lane that needs more is flagged
+
+
+def seed_params(opt):
+    """(min_seed_len, split_len, split_width, max_mem_intv, start_width) of
+    mem_collect_intv (smem.py:107-113). split_len rounds in Python double
+    precision and reaches the kernel as an int."""
+    return (int(opt.min_seed_len),
+            int(opt.min_seed_len * opt.split_factor + 0.499),
+            int(opt.split_width), int(opt.max_mem_intv),
+            2 if opt.flag & MEM_F_SELF_OVLP else 1)
+
+
+_SCAN, _FWD, _BACK, _DONE = 0, 1, 2, 3
+_NONE = 1 << 62  # no seed emitted yet in this smem1a call
+
+
+class _Lanes:
+    """The converted reads of a batch and their strands. Strand `parent`
+    answers backward extension and strand 1 - parent forward extension
+    (seed_batch.py:490-491)."""
+
+    def __init__(self, fm: FMPair, reads, lens, parents):
+        self.fm = fm
+        self.q = reads.long()
+        self.lens = lens.long()
+        self.par = parents.long()
+
+    def base(self, lanes, i):
+        """q[lane, i], 4 outside [0, len)."""
+        v = self.q[lanes, i.clamp(0, self.q.shape[1] - 1)]
+        return torch.where((i >= 0) & (i < self.lens[lanes]), v, 4)
+
+    def set_intv(self, lanes, c):
+        """bwt_set_intv: (x0, x1, s) of base c; x1 from the other strand's
+        L2 at the complement 3 - c."""
+        p, L2 = self.par[lanes], self.fm.L2
+        return L2[p, c] + 1, L2[1 - p, 3 - c] + 1, L2[p, c + 1] - L2[p, c]
+
+    def extend(self, which, x_q, x_o, s, c):
+        """Class c of bwt_extend: (new_xq, new_xo, size) [n] each."""
+        out = _extend(self.fm, which, x_q, x_o, s)
+        return tuple(t.gather(1, c[:, None])[:, 0] for t in out)
+
+
+def _cat(parts, dev):
+    lanes = [p[0] for p in parts]
+    rows = [p[1] for p in parts]
+    if not lanes:
+        return (torch.zeros(0, dtype=torch.long, device=dev),
+                torch.zeros((0, 5), dtype=torch.long, device=dev))
+    return torch.cat(lanes), torch.cat(rows)
+
+
+def _smem_plain(ln: _Lanes, tasks, n_tasks, msl: int):
+    """smem1a over per-lane task lists, the lanes in lockstep, one step of
+    each lane per round (the machine of seed_batch.smem_batch). tasks
+    [B, T, 3] rows (x, min_intv, cont): cont=1 scans on from the returned
+    end (pass 1), cont=0 runs once (pass 2). Returns the seeds at least
+    msl long as (lane [n], rows [n, 5]), in the order they were found."""
+    B, L = ln.q.shape
+    dev = ln.q.device
+    tasks = tasks.clone()
+    z = lambda: torch.zeros(B, dtype=torch.long, device=dev)  # noqa: E731
+    phase, t_idx, x, min_intv, i, ret = z(), z(), z(), z(), z(), z()
+    prev_slot, n_prev, n_curr, j, last = z(), z(), z(), z(), z()
+    rev = torch.zeros(B, dtype=torch.bool, device=dev)
+    ik = torch.zeros((B, 4), dtype=torch.long, device=dev)   # x0, x1, s, end
+    # prev and curr interval lists; a forward pass pushes at most L + 1
+    buf = torch.zeros((B, 2, L + 1, 4), dtype=torch.long, device=dev)
+    found = []
+    while True:
+        sc = torch.nonzero(phase == _SCAN).flatten()
+        fw = torch.nonzero(phase == _FWD).flatten()
+        bk = torch.nonzero(phase == _BACK).flatten()
+        if sc.numel() + fw.numel() + bk.numel() == 0:
+            break
+
+        if sc.numel():  # take the next task, or start smem1a at its x
+            t = t_idx[sc]
+            left = t < n_tasks[sc]
+            phase[sc[~left]] = _DONE
+            a, t = sc[left], t[left]
+            tx, tmi, tc = tasks[a, t].unbind(1)
+            qx = ln.base(a, tx)
+            inside = tx < ln.lens[a]
+            init = inside & (qx < 4)
+            bump = inside & (qx >= 4) & (tc == 1)
+            tasks[a[bump], t[bump], 0] = tx[bump] + 1
+            t_idx[a[~init & ~bump]] += 1
+            s_ = a[init]
+            x0, x1, s = ln.set_intv(s_, qx[init])
+            ik[s_] = torch.stack([x0, x1, s, tx[init] + 1], 1)
+            x[s_] = tx[init]
+            min_intv[s_] = tmi[init].clamp(min=1)
+            i[s_] = tx[init] + 1
+            n_curr[s_] = 0
+            phase[s_] = _FWD
+
+        if fw.numel():  # one forward extension on strand 1 - parent
+            qi = ln.base(fw, i[fw])
+            need = qi < 4
+            push = ~need        # read end or an ambiguous base: push, finish
+            fin = ~need
+            e = fw[need]
+            ike = ik[e]
+            nq, no, sz = ln.extend(1 - ln.par[e], ike[:, 1], ike[:, 0],
+                                   ike[:, 2], 3 - qi[need])
+            changed = sz != ike[:, 2]
+            small = changed & (sz < min_intv[e])
+            push[need] = changed
+            fin[need] = small
+            pa = fw[push]
+            buf[pa, 1 - prev_slot[pa], n_curr[pa]] = ik[pa]
+            n_curr[pa] += 1
+            ad = e[~small]
+            ik[ad] = torch.stack([no[~small], nq[~small], sz[~small],
+                                  i[ad] + 1], 1)
+            i[ad] += 1
+            # finish: curr becomes prev, read back to front (the reversal)
+            f = fw[fin]
+            cs = 1 - prev_slot[f]
+            ret[f] = buf[f, cs, n_curr[f] - 1, 3]
+            rev[f] = True
+            prev_slot[f] = cs
+            n_prev[f] = n_curr[f]
+            n_curr[f] = 0
+            i[f] = x[f] - 1
+            j[f] = 0
+            last[f] = _NONE
+            phase[f] = _BACK
+
+        if bk.numel():  # one prev entry, extended backward on strand parent
+            ia = i[bk]
+            qi = ln.base(bk, ia)
+            has = qi < 4
+            jj = torch.where(rev[bk], n_prev[bk] - 1 - j[bk], j[bk])
+            p = buf[bk, prev_slot[bk], jj]
+            ok = torch.zeros((bk.numel(), 3), dtype=torch.long, device=dev)
+            h = bk[has]
+            ok[has] = torch.stack(ln.extend(ln.par[h], p[has, 0], p[has, 1],
+                                            p[has, 2], qi[has]), 1)
+            keep = ~has | (ok[:, 2] < min_intv[bk])
+            start = ia + 1
+            nc = n_curr[bk]
+            # smem.py:72-74: emit only with curr empty, left of the last seed
+            emit = keep & (nc == 0) & (start < last[bk])
+            store = emit & (p[:, 3] - start >= msl)
+            found.append((bk[store], torch.stack(
+                [start, p[:, 3], p[:, 0], p[:, 1], p[:, 2]], 1)[store]))
+            last[bk[emit]] = start[emit]
+            cs = 1 - prev_slot[bk]
+            last_s = buf[bk, cs, (nc - 1).clamp(min=0), 2]
+            app = ~keep & ((nc == 0) | (ok[:, 2] != last_s))
+            ap = bk[app]
+            buf[ap, cs[app], nc[app]] = torch.cat([ok, p[:, 3:]], 1)[app]
+            n_curr[ap] += 1
+            j[bk] += 1
+            row_done = j[bk] >= n_prev[bk]
+            nc = n_curr[bk]
+            d = bk[row_done & (nc == 0)]
+            # smem1a returned: a scan goes on at ret, a single task is spent
+            t = t_idx[d]
+            cont = tasks[d, t, 2] == 1
+            tasks[d[cont], t[cont], 0] = ret[d[cont]]
+            t_idx[d[~cont]] += 1
+            phase[d] = _SCAN
+            nx = bk[row_done & (nc != 0)]
+            rev[nx] = False
+            prev_slot[nx] = 1 - prev_slot[nx]
+            n_prev[nx] = n_curr[nx]
+            n_curr[nx] = 0
+            i[nx] -= 1
+            j[nx] = 0
+    return _cat(found, dev)
+
+
+def _strategy_plain(ln: _Lanes, msl: int, max_intv: int):
+    """Pass 3, bwt_seed_strategy1 from every position, the lanes in
+    lockstep (the machine of seed_batch.seed_strategy_batch). Returns the
+    seeds with a nonzero interval as (lane [n], rows [n, 5])."""
+    B = ln.q.shape[0]
+    dev = ln.q.device
+    x = torch.zeros(B, dtype=torch.long, device=dev)
+    i = torch.zeros_like(x)
+    ik = torch.zeros((B, 3), dtype=torch.long, device=dev)
+    run = torch.zeros(B, dtype=torch.bool, device=dev)
+    found = []
+    while True:
+        sc = torch.nonzero(~run & (x < ln.lens)).flatten()
+        if sc.numel():
+            qx = ln.base(sc, x[sc])
+            go = qx < 4
+            x[sc[~go]] += 1
+            g = sc[go]
+            ik[g] = torch.stack(ln.set_intv(g, qx[go]), 1)
+            i[g] = x[g] + 1
+            run[g] = True
+        r = torch.nonzero(run).flatten()
+        if r.numel() == 0:
+            if sc.numel() == 0:
+                break
+            continue
+        ir = i[r]
+        qi = ln.base(r, ir)
+        at_end = ir >= ln.lens[r]
+        amb = ~at_end & (qi >= 4)
+        x[r[at_end]] = ln.lens[r[at_end]]
+        x[r[amb]] = ir[amb] + 1
+        stop = at_end | amb
+        need = qi < 4
+        e = r[need]
+        ike = ik[e]
+        nq, no, sz = ln.extend(1 - ln.par[e], ike[:, 1], ike[:, 0], ike[:, 2],
+                               3 - qi[need])
+        ie = ir[need]
+        hit = (sz < max_intv) & (ie - x[e] >= msl)
+        st = hit & (sz > 0)
+        found.append((e[st], torch.stack([x[e], ie + 1, no, nq, sz], 1)[st]))
+        x[e[hit]] = ie[hit] + 1
+        on = ~hit
+        ik[e[on]] = torch.stack([no, nq, sz], 1)[on]
+        i[e[on]] += 1
+        stop[need] = hit
+        run[r[stop]] = False
+    return _cat(found, dev)
+
+
+def collect_intv_flat_plain(fm: FMPair, reads, lens, parents, opt,
+                            S: int = SEED_CAP):
+    """Plain torch mem_collect_intv for a batch; the contract of
+    `collect_intv_flat`. Passes 1 and 2 run as one smem1a machine each,
+    pass 3 as the seed_strategy1 machine (the plan of
+    seed_batch._collect_sm_fused), then one stable sort per lane."""
+    msl, split_len, split_width, max_intv, start_width = seed_params(opt)
+    B, L = reads.shape
+    dev = reads.device
+    if B == 0 or L == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros((0, 5), dtype=fm.rdt, device=dev),
+                torch.zeros(B, dtype=torch.bool, device=dev))
+    ln = _Lanes(fm, reads, lens, parents)
+    one = torch.ones(B, dtype=torch.long, device=dev)
+    tasks1 = torch.tensor([0, start_width, 1], device=dev).repeat(B, 1, 1)
+    lane1, rows1 = _smem_plain(ln, tasks1, one, msl)
+    # pass 2 (memchain.c:76-85): re-seed the middle of each long pass-1
+    # SMEM with few occurrences, asking for one occurrence more
+    m2 = (rows1[:, 1] - rows1[:, 0] >= split_len) & (rows1[:, 4] <= split_width)
+    lane2, rows2 = lane1[m2], rows1[m2]
+    n2 = torch.bincount(lane2, minlength=B)
+    order = torch.sort(lane2, stable=True).indices
+    lane2, rows2 = lane2[order], rows2[order]
+    rank = torch.arange(lane2.numel(), device=dev) - (n2.cumsum(0) - n2)[lane2]
+    tasks2 = torch.zeros((B, max(int(n2.max()), 1), 3), dtype=torch.long,
+                         device=dev)
+    tasks2[lane2, rank, 0] = (rows2[:, 0] + rows2[:, 1]) >> 1
+    tasks2[lane2, rank, 1] = rows2[:, 4] + 1
+    parts = [(lane1, rows1), _smem_plain(ln, tasks2, n2, msl)]
+    if max_intv > 0:
+        parts.append(_strategy_plain(ln, msl, max_intv))
+    lane, rows = _cat(parts, dev)
+    # the host's stable (start<<32 | end) sort, lane by lane; equal keys
+    # are one substring of the read and so one row
+    key = (lane * (L + 1) + rows[:, 0]) * (L + 2) + rows[:, 1]
+    order = torch.sort(key, stable=True).indices
+    lane, rows = lane[order], rows[order]
+    ov = torch.bincount(lane, minlength=B) > S
+    keep = ~ov[lane]
+    return lane[keep].to(torch.int32), rows[keep].to(fm.rdt), ov
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+# (tab, L2, primary, n64, seq_len, reads, lens, parents, B, L, min_seed_len,
+#  split_len, split_width, max_mem_intv, start_width, S, scratch, rows, n, ov)
+_SEED_SIG = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 7
+             + [ctypes.c_void_p] * 4)
+
+
+def _seed_lib():
+    return kernels.load("smem_seed", {"smem_seed_narrow": _SEED_SIG,
+                                      "smem_seed_wide": _SEED_SIG})
+
+
+def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
+                      S: int = SEED_CAP):
+    """Device mem_collect_intv (smem.collect_intv) for a batch of lanes.
+
+    reads [B, L] int32 converted reads (any code > 3 is ambiguous), lens
+    [B], parents [B] (0: daughter, 1: parent strand). Returns (lane_of [M]
+    int32, rows [M, 5] of the rank dtype (start, end, x0, x1, size),
+    overflow [B] bool), ordered by lane, start, end. A lane is flagged iff
+    smem.collect_intv gives it more than S rows; a flagged lane has no
+    rows. K3 on CUDA (one thread per lane), the plain machine on the CPU."""
+    if kernels.route(reads) == "plain":
+        return collect_intv_flat_plain(fm, reads, lens, parents, opt, S)
+    reads = reads.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    parents = parents.to(torch.int32).contiguous()
+    dev = kernels.check_cuda(fm.tab, reads, lens, parents)
+    B, L = reads.shape
+    kernels.check_lanes(B, lens, parents)
+    # the kernel reads reads[b, :lens[b]] and the strand tables of parents[b]
+    if bool(((lens < 0) | (lens > L) | ((parents & ~1) != 0)).any()):
+        raise ValueError("lens must lie in [0, L] and parents in {0, 1}")
+    rows = torch.empty((B, S, 5), dtype=fm.rdt, device=dev)
+    n = torch.empty(B, dtype=torch.int32, device=dev)
+    ov = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return n, rows.reshape(0, 5), ov
+    scratch = torch.empty((B, 2, L + 1, 4), dtype=fm.rdt, device=dev)
+    msl, split_len, split_width, max_intv, start_width = seed_params(opt)
+    fn = "smem_seed_wide" if fm.wide else "smem_seed_narrow"
+    kernels.launch(_seed_lib(), fn, "smem_seed", dev,
+                   kernels.ptr(fm.tab), kernels.ptr(fm.L2),
+                   kernels.ptr(fm.primary), fm.tab.shape[1], fm.seq_len,
+                   kernels.ptr(reads), kernels.ptr(lens), kernels.ptr(parents),
+                   B, L, msl, split_len, split_width, max_intv, start_width, S,
+                   kernels.ptr(scratch), kernels.ptr(rows), kernels.ptr(n),
+                   kernels.ptr(ov))
+    n = n.long()
+    keep = torch.arange(S, device=dev)[None, :] < n[:, None]
+    lane_of = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(n)
+    return lane_of, rows[keep], ov
+
+
+def collect_intv_batch(fm: FMPair, reads, lens, parents, opt,
+                       S: int = SEED_CAP):
+    """collect_intv_flat as per-lane lists of (start, end, x0, x1, size)
+    tuples, with the overflow mask as numpy."""
+    lane_of, rows, ov = collect_intv_flat(fm, reads, lens, parents, opt, S)
+    B = reads.shape[0]
+    counts = np.bincount(lane_of.cpu().numpy(), minlength=B)
+    flat = [tuple(r) for r in rows.cpu().tolist()]
+    out, o = [], 0
+    for c in counts.tolist():
+        out.append(flat[o:o + c])
+        o += c
+    return out, ov.cpu().numpy()
+
 
 # (tab, L2, primary, sa_samples, which, k, n64, n_sa, sa_shift, out, n)
 _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int,

@@ -5,15 +5,17 @@
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
-  2. build the three CUDA sources of the align slice with nvcc
+  2. build the five CUDA sources of the align slice with nvcc, in parallel
   3. each kernel against its plain torch version on the card, on
-     numpy-seeded inputs at the shapes of the align path: exact equality
-     (torch.equal), and both times from CUDA events
+     numpy-seeded inputs or the phase-4 reads at the shapes of the align
+     path: exact equality (torch.equal), and both times from CUDA events;
+     the seeder and the SA walk also on a 50 Mbp index (tables twice the L2)
   4. the align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS reads
      (tools/make_testdata.py, plus SNPs and small indels so that global
      alignment has work), the index built in-process, then the port's
      `align` CLI on cuda; its first 512 reads' SAM must equal the port's
-     host engine's byte for byte
+     host engine's byte for byte, and at most 1% of the seeding lanes and
+     10% of the chaining lanes may be redone on the host
   5. no jax module was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
@@ -26,10 +28,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
+BIG_GENOME, BIG_CHECK = 50_000_000, 1024  # 50 Mbp: lanes held to plain
 N_CHECK = 512            # reads whose SAM is held to the host engine
 
 
@@ -57,6 +61,16 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def lanes_of(fq, n_reads):
+    """The seeder's input for the first n_reads of fq, each read converted
+    both ways as the engine plans SE lanes: (reads [2n, L] int32, lens,
+    parents) as numpy."""
+    from biscuit_tpu.io.fastq import fastq_iter, read_batch
+    from biscuit_tpu_torch.align.device_engine import pack_lanes
+    seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:n_reads]
+    return pack_lanes([(s, p) for s in seqs for p in (0, 1)])
 
 
 def compare(name, got, want):
@@ -163,12 +177,15 @@ def smoke(work: str) -> int:
     say(f"[1] card: {card}; capability {torch.cuda.get_device_capability(0)}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, one nvcc for each source, all started together
     from biscuit_tpu_torch import kernels
-    from biscuit_tpu_torch.ops import seed_batch, sw_extend, sw_global
+    from biscuit_tpu_torch.ops import chain_batch, seed_batch, sw_extend, sw_global
     t0 = time.perf_counter()
-    for lib in (sw_extend._lib, sw_global._lib, seed_batch._lib):
-        lib()
+    libs = (sw_extend._lib, sw_global._lib, seed_batch._lib,
+            seed_batch._seed_lib, chain_batch._lib)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib) for lib in libs]:
+            f.result()
     say(f"[2] built {sorted(kernels.BUILD_SECONDS) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s; per source "
         f"{json.dumps({k: round(v, 2) for k, v in kernels.BUILD_SECONDS.items()})}")
@@ -286,6 +303,107 @@ def smoke(work: str) -> int:
         if g != fms[wh].sa_s(r):
             raise AssertionError(f"sa_walk rank {r}: {g} != {fms[wh].sa_s(r)}")
 
+    # K3 (K5 inside it): the phase-4 reads converted both ways, as the
+    # engine seeds them, on the narrow index and on its wide twin
+    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI
+    from biscuit_tpu_torch.align.smem import collect_intv
+    opt = MemOpt()
+    opt.flag |= MEM_F_NO_MULTI
+    lq, ll, lp = (T(a) for a in lanes_of(fq, N_READS))
+
+    def seed_fns(f, lanes, n_lanes):
+        a = (f, *(x[:n_lanes] for x in lanes), opt)
+        return (lambda: seed_batch.collect_intv_flat(*a),
+                lambda: seed_batch.collect_intv_flat_plain(*a))
+
+    def seed_check(name, f, lanes, n_lanes):
+        kf, pf = seed_fns(f, lanes, n_lanes)
+        got, want = kf(), pf()
+        n = [torch.bincount(x[0].long(), minlength=n_lanes) for x in (got, want)]
+        err = compare(name, (*got, n[0]), (*want, n[1]))
+        if int(got[2].sum()) > n_lanes // 100 or got[1].shape[0] < n_lanes:
+            raise AssertionError(f"{name}: {int(got[2].sum())} lanes flagged, "
+                                 f"{got[1].shape[0]} rows for {n_lanes} lanes")
+        return err, kf, pf, got
+
+    B = lq.shape[0]
+    err, ks, ps, got = seed_check("smem_seed", fm, (lq, ll, lp), B)
+    # the first lanes against the host's exact smem.collect_intv
+    lane_of, rows, _ov = (x.cpu() for x in got)
+    for b in range(64):
+        p = int(lp[b])
+        want = collect_intv(opt, fms[p], fms[1 - p], lq[b, :int(ll[b])].cpu().numpy())
+        mine = [tuple(r) for r in rows[lane_of == b].tolist()]
+        if mine != want:
+            raise AssertionError(f"smem_seed lane {b} differs from collect_intv")
+    err = max(err, seed_check("smem_seed wide", fmw, (lq, ll, lp), B)[0])
+    row("smem_seed", "smem_seed.cu", "biscuit_tpu/ops/seed_batch.py:1847", err,
+        cuda_ms(ks, 10), cuda_ms(ps, 1),
+        f"B={B} lanes, L={lq.shape[1]}, narrow index (times), wide (equality), "
+        f"{rows.shape[0]} rows")
+
+    # K6: the occurrence streams mem_chain_batch builds for those lanes and
+    # for chimeras of thirds of three reads (lanes of three chains), caught
+    # at the scan's entry; then NC=2, where lanes overflow
+    from biscuit_tpu.io.fastq import BSeq, fastq_iter, read_batch
+    from biscuit_tpu_torch.align.chain import CHAIN_NC, mem_chain_batch
+    from biscuit_tpu_torch.align.device_engine import DeviceAligner
+    from biscuit_tpu_torch.align.pipeline import AlignerState
+    seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:N_READS]
+    n3 = READ_LEN // 3
+    chim = [np.concatenate([seqs[i].seq[:n3], seqs[i + 1].seq[n3:2 * n3],
+                            seqs[i + 2].seq[2 * n3:3 * n3]])
+            for i in range(0, 3 * (N_READS // 8), 3)]
+    seqs += [BSeq(name=f"chimera{i}", seq=c, l_seq=len(c))
+             for i, c in enumerate(chim)]
+    plan = [(s, p) for s in seqs for p in (0, 1)]
+    engine = DeviceAligner(AlignerState(idx), dev)
+    seeds, lookups = engine._collect_seeds(opt, plan)
+    jobs = [(s.l_seq, p, seeds[i], lookups[i]) for i, (s, p) in enumerate(plan)]
+    caught = []
+    real_scan = chain_batch.chain_scan_batch
+    chain_batch.chain_scan_batch = lambda *a, **k: caught.append(a) or real_scan(*a, **k)
+    try:
+        mem_chain_batch(opt, idx, jobs, dev)
+    finally:
+        chain_batch.chain_scan_batch = real_scan
+    sa = caught[0]
+    kc = lambda nc=CHAIN_NC: chain_batch.chain_scan_batch(*sa, NC=nc)
+    pc = lambda nc=CHAIN_NC: chain_batch.chain_scan_batch_plain(*sa, NC=nc)
+    err = compare("chain_scan", kc(), pc())
+    got2 = kc(2)
+    err = max(err, compare("chain_scan NC=2", got2, pc(2)))
+    n_ov2 = int(got2[1].sum())
+    if n_ov2 == 0:
+        raise AssertionError("chain_scan NC=2 flagged no lane")
+    row("chain_scan", "chain_scan.cu", "biscuit_tpu/ops/chain_batch.py:44",
+        err, cuda_ms(kc, 20), cuda_ms(pc, 1),
+        f"J={sa[0].shape[0]} B={sa[0].shape[1]} NC={CHAIN_NC} "
+        f"(+NC=2: {n_ov2} lanes flagged, equal)")
+
+    # the seeder and the SA walk on a 50 Mbp index, whose tables (about
+    # 100 MB each strand pair) are twice the L2; the plain versions on
+    # BIG_CHECK lanes and 2^16 ranks bound their time
+    t0 = time.perf_counter()
+    bfa, bfq, bidx = make_dataset(os.path.join(work, "big"), genome_size=BIG_GENOME,
+                                  n_reads=N_READS, read_len=READ_LEN, seed=SEED)
+    fmb = seed_batch.FMPair.from_index(bidx, dev)
+    say(f"[3] 50 Mbp data and index in {time.perf_counter() - t0:.1f} s "
+        f"(fused tables {fmb.tab.numel() * 4 / 1e6:.0f} MB)")
+    big = tuple(T(a) for a in lanes_of(bfq, N_READS))
+    kb, _pb = seed_fns(fmb, big, B)
+    _err, _kb, pb, _got = seed_check("smem_seed 50 Mbp", fmb, big, BIG_CHECK)
+    say(f"[3] smem_seed 50 Mbp: kernel {cuda_ms(kb, 5):.4f} ms for {B} lanes, "
+        f"plain {cuda_ms(pb, 1):.4f} ms for {BIG_CHECK} lanes, equal on "
+        f"{BIG_CHECK} [{card}]")
+    rb = T(rng.integers(0, fmb.seq_len + 1, n).astype(np.int32))
+    kw = lambda: seed_batch.sa_batch(fmb, which, rb)
+    pw = lambda: seed_batch.sa_batch_plain(fmb, which[:1 << 16], rb[:1 << 16])
+    compare("sa_walk 50 Mbp", kw()[:1 << 16], pw())
+    say(f"[3] sa_walk 50 Mbp: kernel {cuda_ms(kw, 10):.4f} ms for 2^20 ranks, "
+        f"plain {cuda_ms(pw, 1):.4f} ms for 2^16, equal on 2^16 [{card}]")
+    del fmb, bidx
+
     # 4. the align slice end to end, through the CLI entry point
     from biscuit_tpu_torch import cli
     from biscuit_tpu_torch.align import device_engine
@@ -338,8 +456,14 @@ def smoke(work: str) -> int:
         f"first {N_CHECK} SAM byte-identical to the host engine "
         f"({host_s:.1f} s on host)")
     say(f"[4] stages (s): {json.dumps({k: round(v, 3) for k, v in rep.items()})}")
-    say(f"[4] traceback-overflow lanes realigned on host: "
-        f"{rep['traceback_overflow_lanes']}")
+    say(f"[4] lanes redone on host: seeding {rep['seed_overflow_lanes']}, "
+        f"chaining {rep['chain_host_lanes']} of {2 * N_READS}; traceback "
+        f"overflow {rep['traceback_overflow_lanes']}")
+    # a kernel that flagged every lane must not pass behind the host rerun
+    if rep["seed_overflow_lanes"] > 2 * N_READS // 100:
+        raise AssertionError("over 1% of the seeding lanes ran on the host")
+    if rep["chain_host_lanes"] > 2 * N_READS // 10:
+        raise AssertionError("over 10% of the chaining lanes ran on the host")
     say(f"[4] launches: {json.dumps(launches)}")
     say(f"[4] align wall {wall:.2f} s = {N_READS / wall:.1f} reads/s "
         f"(engine stages {rep['total_s']:.2f} s) [{card}]")

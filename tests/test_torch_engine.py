@@ -2,9 +2,11 @@
 
 The port's process_seqs_device (plain torch versions of the kernels) must
 write SAM byte-identical to the JAX device engine and to the JAX host
-engine; its `align` CLI must write what it writes in-process; it must never
-import jax; and its copies of the host align modules must stay their
-sources' code with only the imports changed.
+engine, with seeding and the chain scan on its batched path; its `align`
+CLI must write what it writes in-process; it must never import jax; and
+its copies of the host align modules must stay their sources' code with
+only the imports changed (and, in chain.py, mem_chain_batch's call into
+the port's chain scan).
 """
 import ast
 import os
@@ -74,6 +76,11 @@ def test_se_sam_matches_jax_device_and_host(data, port_sam):
     cigars = [ln.split("\t")[5] for g in got for ln in g.splitlines()]
     assert sum(("I" in c or "D" in c) for c in cigars) >= N_READS // 8
     assert report["sa"] > 0 and report["extend"] > 0 and report["cigar"] > 0
+    # seeding and the chain scan ran on the port's batched path: the plain
+    # seeder and scan, with few lanes redone on the host
+    assert report["seed"] > 0 and report["chain_scan"] > 0
+    assert report["seed_overflow_lanes"] <= 2 * N_READS // 100
+    assert report["chain_host_lanes"] <= 2 * N_READS // 10
     assert not any(launches.values())
 
 
@@ -189,8 +196,8 @@ def _code(path, drop=()):
                                   "pair", "pipeline"])
 def test_copied_module_matches_source(name):
     drop = ()
-    if name == "chain":  # left out until the chain kernel is ported
-        drop = ("mem_chain_batch", "CHAIN_KMAX", "CHAIN_NC", "CHAIN_JMAX")
+    if name == "chain":  # its call into the chain scan is the port's own
+        drop = ("mem_chain_batch",)
     src = os.path.join(REPO, "biscuit_tpu", "align", name + ".py")
     dst = os.path.join(REPO, "biscuit_tpu_torch", "align", name + ".py")
-    assert _code(dst) == _code(src, drop)
+    assert _code(dst, drop) == _code(src, drop)
