@@ -1,4 +1,4 @@
-"""Device alignment engine (torch): SE reads through the device kernels.
+"""Device alignment engine (torch): SE and PE reads through the device kernels.
 
 Port of DeviceAligner / prefill_setSAM / process_seqs_device of
 biscuit_tpu/align/device_engine.py. The host logic (chaining, region
@@ -20,7 +20,11 @@ Batch flow per call:
   6. device: global alignment + traceback for every region SAM will print
      (ops/sw_global, K2); lanes whose traceback overflows max_ops are
      realigned by the scalar sw.sw_global
-  7. host: region merge, primary marking, SAM
+  7. PE only, over the whole chunk: host insert-size statistics (pestat),
+     then batched mate rescue (region.matesw_batch), every candidate's
+     ksw_align2 in one forward and one reverse call of K7
+     (ops/sw_local), replayed per pair on the host
+  8. host: region merge, primary marking, pairing, SAM
 
 Every op runs on `device`: CUDA launches the kernels, the CPU runs their
 plain torch versions.
@@ -32,32 +36,35 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from biscuit_tpu.config import MemOpt, MEM_F_PE
+from biscuit_tpu.config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE
 from biscuit_tpu.ops import sw
 from biscuit_tpu.align.io_helpers import read_clipping
 
 from ..ops.seed_batch import FMPair, collect_intv_batch, sa_batch
 from ..ops.sw_extend import sw_extend_batch
 from ..ops.sw_global import decode_cigars, global_traceback, sw_global_batch
+from ..ops.sw_local import sw_align_batch
 from . import sam as sammod
 from . import trace
 from .chain import (mem_chain, mem_chain_batch, mem_chain_flt,
                     mem_flt_chained_seeds)
-from .region import AlnRegs, chain2region_gen, merge_regions
+from .pair import pestat
+from .region import AlnRegs, chain2region_gen, matesw_batch, merge_regions
 from .smem import collect_intv
-from .pipeline import AlignerState, bsconvert, worker2_se
+from .pipeline import AlignerState, bsconvert, worker2_pe, worker2_se
 
 # stage wall-clock accumulator: seconds per stage, read by stage_report()
 _STAGE_T: Dict[str, float] = {}
-# lanes past a device capacity contract, each redone exactly on the host
-# (a capacity contract, not a fallback): seeding lanes over the seeder's S
-# rows (smem.collect_intv), chaining lanes over the scan's KMAX, JMAX or NC
-# (chain.mem_chain), global-alignment lanes whose traceback overflowed
-# max_ops (sw.sw_global)
-_OVERFLOW = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
-             "traceback_overflow_lanes": 0}
+# lane counts, read by stage_report(). The *_lanes past a device capacity
+# contract are each redone exactly on the host (a capacity contract, not a
+# fallback): seeding lanes over the seeder's S rows (smem.collect_intv),
+# chaining lanes over the scan's KMAX, JMAX or NC (chain.mem_chain),
+# global-alignment lanes whose traceback overflowed max_ops (sw.sw_global).
+# rescue_lanes: the lanes sent to K7, forward and reverse passes together.
+_COUNTS = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
+           "traceback_overflow_lanes": 0, "rescue_lanes": 0}
 # stages whose work runs on the device, as the JAX engine counts them
-_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar")
+_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue")
 
 
 class _stage:
@@ -73,21 +80,21 @@ class _stage:
 
 
 def stage_report() -> Dict[str, float]:
-    """Per-stage seconds, the share of the device-dispatching stages, and
-    the counts of lanes redone on the host."""
+    """Per-stage seconds, the share of the device-dispatching stages, the
+    counts of lanes redone on the host and of the lanes of mate rescue."""
     total = sum(_STAGE_T.values())
     dev = sum(_STAGE_T.get(k, 0.0) for k in _DEVICE_STAGES)
     rep = dict(_STAGE_T)
     rep["total_s"] = total
     rep["device_share"] = dev / total if total else 0.0
-    rep.update(_OVERFLOW)
+    rep.update(_COUNTS)
     return rep
 
 
 def reset_stages() -> None:
     _STAGE_T.clear()
-    for k in _OVERFLOW:
-        _OVERFLOW[k] = 0
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
 SA_PREFETCH_CAP = 64
@@ -121,6 +128,23 @@ class DeviceAligner:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------------
+    def sw_local_batch_fn(self, opt: MemOpt):
+        """(reqs, xsubo) -> [KswResult]: exact ksw_align2 for mate rescue
+        on the device (ops/sw_local, K7). reqs carry matsel as parent:
+        mats[0] = ctmat, mats[1] = gamat (region._matesw_core), the reverse
+        of the extension's order in `_mats`."""
+        mats_np = np.stack([np.asarray(opt.ctmat, np.int64),
+                            np.asarray(opt.gamat, np.int64)])
+
+        def fn(reqs, xsubo):
+            res, n_lanes = sw_align_batch(reqs, opt.o_del, opt.e_del,
+                                          opt.o_ins, opt.e_ins, mats_np,
+                                          xsubo, self.device)
+            _COUNTS["rescue_lanes"] += n_lanes
+            return res
+        return fn
+
+    # ------------------------------------------------------------------
     def _collect_seeds(self, opt: MemOpt, lanes: List[Tuple]):
         """lanes: list of (seq, parent). Returns per-lane seed lists and SA
         position lookups."""
@@ -134,7 +158,7 @@ class DeviceAligner:
                 s, p = lanes[i]
                 fm, fmc = st.fm_pair(p)
                 seeds[i] = collect_intv(opt, fm, fmc, bsconvert(s, p))
-            _OVERFLOW["seed_overflow_lanes"] += int(overflow.sum())
+            _COUNTS["seed_overflow_lanes"] += int(overflow.sum())
 
         with _stage("sa"):
             # batched SA for up to SA_PREFETCH_CAP occurrences per seed
@@ -277,7 +301,7 @@ class DeviceAligner:
                                np.where(ovh, 0, n_ops.cpu().numpy()))
         for i, (key, qq, rr, w, parent) in enumerate(reqs):
             if ovh[i]:
-                _OVERFLOW["traceback_overflow_lanes"] += 1
+                _COUNTS["traceback_overflow_lanes"] += 1
                 mat = (opt.ctmat if parent else opt.gamat)
                 out[key] = sw.sw_global(
                     qq, rr, mat, opt.o_del, opt.e_del, opt.o_ins,
@@ -288,16 +312,25 @@ class DeviceAligner:
 
     # ------------------------------------------------------------------
     def regs_for_batch(self, opt: MemOpt, seqs) -> List[AlnRegs]:
-        """worker1 for a batch of SE reads: one merged AlnRegs per read."""
+        """worker1 for a batch of reads (SE, or PE mates interleaved): one
+        merged AlnRegs per read."""
         st = self.st
         idx = st.idx
         # lane policy (bwamem.c:311-375): order matters for emission parity
         lane_plan: List[Tuple[int, int]] = []  # (seq_idx, parent)
+        pe = bool(opt.flag & MEM_F_PE)
         for i, _s in enumerate(seqs):
-            if not (opt.parent & 1) or (opt.parent >> 1):
-                lane_plan.append((i, 0))
-            if not (opt.parent & 1) or not (opt.parent >> 1):
-                lane_plan.append((i, 1))
+            if not pe:
+                if not (opt.parent & 1) or (opt.parent >> 1):
+                    lane_plan.append((i, 0))
+                if not (opt.parent & 1) or not (opt.parent >> 1):
+                    lane_plan.append((i, 1))
+            else:
+                # read 1 seeds the parent strand first, read 2 the daughter
+                first = 1 if i % 2 == 0 else 0
+                lane_plan.append((i, first))
+                if not opt.parent:
+                    lane_plan.append((i, 1 - first))
         lanes = [(seqs[i], p) for i, p in lane_plan]
         seeds, lookups = self._collect_seeds(opt, lanes)
 
@@ -311,7 +344,7 @@ class DeviceAligner:
                 jobs = [(seqs[si].l_seq, parent, seeds[li], lookups[li])
                         for li, (si, parent) in enumerate(lane_plan)]
                 dev_chains = mem_chain_batch(opt, idx, jobs, self.device)
-                _OVERFLOW["chain_host_lanes"] += sum(
+                _COUNTS["chain_host_lanes"] += sum(
                     c is None for c in dev_chains)
         with _stage("chain"):
             for li, (si, parent) in enumerate(lane_plan):
@@ -419,30 +452,67 @@ def _chain_generators(gen_parent_list):
 def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
                         pes0=None, rg_id: str = "",
                         engine: DeviceAligner = None, device=None) -> None:
-    """mem_process_seqs with the device-backed worker1, SE only. Pass an
-    `engine` or the `device` to build one on."""
-    if opt.flag & MEM_F_PE:
-        raise NotImplementedError(
-            "paired-end align on the torch engine needs mate rescue on the "
-            "device (ROADMAP.md, Queue 1: K7 mate rescue and PE)")
+    """mem_process_seqs with the device-backed worker1; PE when opt.flag
+    has MEM_F_PE (mates interleaved in `seqs`). Pass an `engine` or the
+    `device` to build one on."""
     if engine is None:
         if device is None:
             raise ValueError("process_seqs_device needs an engine or a device")
         engine = DeviceAligner(st, device)
+    pe = bool(opt.flag & MEM_F_PE)
+    if pe:
+        for i in range(0, len(seqs), 2):
+            s1, s2 = seqs[i], seqs[i + 1]
+            if s1.name != s2.name and not (
+                    s1.name[:-1] == s2.name[:-1] and s1.name[-1] == "1"
+                    and s2.name[-1] == "2"):
+                raise RuntimeError(
+                    f'paired reads have different names: "{s1.name}", "{s2.name}"')
     for s in seqs:
-        read_clipping(s, opt.adaptor1, opt)
+        read_clipping(s, opt.adaptor1 if (not pe or s.id % 2 == 0)
+                      else opt.adaptor2, opt)
+    step = DEVICE_BATCH * 2 if pe else DEVICE_BATCH
     all_regs: List[AlnRegs] = []
-    for lo in range(0, len(seqs), DEVICE_BATCH):
-        all_regs.extend(engine.regs_for_batch(opt, seqs[lo:lo + DEVICE_BATCH]))
+    for lo in range(0, len(seqs), step):
+        all_regs.extend(engine.regs_for_batch(opt, seqs[lo:lo + step]))
     # device-side CIGAR: batch-prefill alnreg_setSAM results before the
     # host worker2 loop (skipped at -v4: the byte-exact debug traces
-    # interleave setSAM output in host order)
-    if trace.verbose < 4:
-        with _stage("cigar"):
-            items = []
+    # interleave setSAM output in host order; PE then rescues on the host,
+    # in worker2_pe)
+    prefill = trace.verbose < 4
+    if not pe:
+        if prefill:
+            with _stage("cigar"):
+                _prefill(opt, st, engine, seqs, all_regs)
+        with _stage("worker2"):
             for i, s in enumerate(seqs):
-                items.extend(_setSAM_candidates(opt, s, all_regs[i]))
-            prefill_setSAM(opt, st.idx, engine, items)
+                worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id)
+        return
+    n_pairs = len(seqs) >> 1
+    # the insert-size statistics span the whole chunk (bwamem.c:464-467)
+    pes = pes0 if pes0 is not None else pestat(opt, st.idx, all_regs)
+    pairs = [((seqs[i << 1], seqs[(i << 1) | 1]),
+              (all_regs[i << 1], all_regs[(i << 1) | 1]))
+             for i in range(n_pairs)]
+    if prefill:
+        # mate rescue mutates the region lists: run it for the whole chunk
+        # first (every candidate's ksw_align2 in one K7 batch, replayed per
+        # pair on the host), then prefill, then worker2 skips rescue
+        if not (opt.flag & MEM_F_NO_RESCUE):
+            with _stage("rescue"):
+                matesw_batch(opt, st.idx, pes, pairs,
+                             engine.sw_local_batch_fn(opt))
+        with _stage("cigar"):
+            _prefill(opt, st, engine, seqs, all_regs)
     with _stage("worker2"):
-        for i, s in enumerate(seqs):
-            worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id)
+        for i, (sq, rp) in enumerate(pairs):
+            worker2_pe(opt, st, sq, rp, pes, n_processed, i, rg_id,
+                       skip_rescue=prefill)
+
+
+def _prefill(opt: MemOpt, st: AlignerState, engine: DeviceAligner, seqs,
+             all_regs) -> None:
+    items = []
+    for i, s in enumerate(seqs):
+        items.extend(_setSAM_candidates(opt, s, all_regs[i]))
+    prefill_setSAM(opt, st.idx, engine, items)

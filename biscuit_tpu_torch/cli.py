@@ -1,13 +1,15 @@
 """biscuit_tpu_torch command-line interface.
 
 `align` is the port of biscuit_tpu.cli.main_align (the same options and
-batching) running SE reads through the torch device engine
+batching) running SE and PE reads through the torch device engine
 (align/device_engine.process_seqs_device) on the device named by
 BISCUIT_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs the plain torch
 versions of the kernels). SAM goes to stdout. Every other subcommand is
 biscuit_tpu.cli.main unchanged.
 
     python -m biscuit_tpu_torch.cli align <genome.fa> <reads.fq> > out.sam
+    python -m biscuit_tpu_torch.cli align <genome.fa> <r1.fq> <r2.fq> > pe.sam
+    python -m biscuit_tpu_torch.cli align -p <genome.fa> <interleaved.fq>
 """
 import getopt
 import math
@@ -271,10 +273,6 @@ Input/output options:
     trace.set_verbose(verbose)
     jax_pkg_trace.set_verbose(verbose)  # read by the shared align/bns.py
 
-    if opt.flag & MEM_F_PE or seq2 is not None or len(args) > 2:
-        print("[biscuit_tpu_torch] paired-end align is not ported yet "
-              "(ROADMAP.md, Queue 1: K7 mate rescue and PE)", file=sys.stderr)
-        return 1
     device = resolve()
 
     idx = BisIndex.load(args[0])
@@ -322,6 +320,9 @@ Input/output options:
 
     if seq1 is not None:
         seqs = [make_bseq("inputread", None, seq1, None)]
+        if seq2 is not None:
+            seqs.append(make_bseq("inputread", None, seq2, None))
+            opt.flag |= MEM_F_PE
         run_batch(seqs, 0)
         for s in seqs:
             if s.sam:
@@ -329,6 +330,14 @@ Input/output options:
         return 0
 
     it1 = fastq_iter(args[1])
+    it2 = None
+    if len(args) > 2:
+        if opt.flag & MEM_F_SMARTPE:
+            print("[W] when '-p' is in use, the second query file is ignored.",
+                  file=sys.stderr)
+        else:
+            it2 = fastq_iter(args[2])
+            opt.flag |= MEM_F_PE
     n_processed = 0
     chunk = opt.chunk_size * opt.n_threads
     # kt_pipeline equivalent (reference align.c:577 + kthread.c:176-256):
@@ -341,7 +350,7 @@ Input/output options:
     def _reader():
         try:
             while True:
-                batch = read_batch(it1, None, chunk, bool(opt.has_bc))
+                batch = read_batch(it1, it2, chunk, bool(opt.has_bc))
                 bq.put(batch)
                 if not batch:
                     break

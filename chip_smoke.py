@@ -5,17 +5,25 @@
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
-  2. build the five CUDA sources of the align slice with nvcc, in parallel
+  2. build the six CUDA sources of the align slice with nvcc, in parallel
   3. each kernel against its plain torch version on the card, on
      numpy-seeded inputs or the phase-4 reads at the shapes of the align
      path: exact equality (torch.equal), and both times from CUDA events;
      the seeder and the SA walk also on a 50 Mbp index (tables twice the L2)
-  4. the align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS reads
-     (tools/make_testdata.py, plus SNPs and small indels so that global
-     alignment has work), the index built in-process, then the port's
-     `align` CLI on cuda; its first 512 reads' SAM must equal the port's
-     host engine's byte for byte, and at most 1% of the seeding lanes and
-     10% of the chaining lanes may be redone on the host
+  4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
+     reads (tools/make_testdata.py, plus SNPs and small indels so that
+     global alignment has work), the index built in-process, then the
+     port's `align` CLI on cuda; its first 512 reads' SAM must equal the
+     port's host engine's byte for byte, and at most 1% of the seeding
+     lanes and 10% of the chaining lanes may be redone on the host
+  4b. the PE align slice end to end: 2048 pairs of 150 bp on the same
+     genome, every third mate 2 damaged so that only mate rescue can place
+     it, through the CLI with two FASTQs; the SAM of the whole chunk must
+     equal the port's host engine's byte for byte, K7 (mate rescue) must
+     have run, and more damaged mates must be mapped than in a run with
+     rescue off (-S). Then K7's row of the kernel table: its calls caught
+     on this path, and numpy-seeded i16, saturating u8 and odd-qlen lanes,
+     against its plain version
   5. no jax module was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
@@ -33,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
+N_PAIRS, DAMAGE_EVERY = 2048, 3  # phase 4b: pairs; every 3rd mate 2 damaged
 BIG_GENOME, BIG_CHECK = 50_000_000, 1024  # 50 Mbp: lanes held to plain
 N_CHECK = 512            # reads whose SAM is held to the host engine
 
@@ -153,6 +162,43 @@ def glob_case(rng, B, Lq, Lt):
     return q, qlens, t, tlens, msel, w.astype(np.int32)
 
 
+def local_case(rng, B, Lq, Lt):
+    """K7 lanes beside the path's: i16 and u8 lanes mixed, qlens that are
+    not multiples of 16, a third of the targets repeating their query under
+    a third matrix that scores 4 a match (u8 lanes saturate), and early
+    endsc breaks. Returns the wrapper's inputs as numpy, the matrices
+    [3, 5, 5] (gamat, ctmat, a=4/b=2)."""
+    import numpy as np
+    from biscuit_tpu.config import MemOpt
+    opt = MemOpt()
+    q = np.full((B, Lq), 4, np.int32)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
+    qlens = rng.integers(Lq // 3, Lq - 2, B).astype(np.int32)
+    qlens[qlens % 16 == 0] += 1
+    tlens = rng.integers(Lt // 2, Lt + 1, B).astype(np.int32)
+    msel = rng.integers(0, 2, B).astype(np.int32)
+    for b in range(B):
+        qq = rng.integers(0, 4, qlens[b])
+        q[b, :qlens[b]] = qq
+        off = int(rng.integers(0, tlens[b] - qlens[b]))
+        reps = 1 if b % 3 else (tlens[b] - off) // qlens[b]
+        for k in range(reps):
+            t[b, off + k * qlens[b]:off + (k + 1) * qlens[b]] = qq
+        if b % 3 == 0:
+            msel[b] = 2
+        nm = int(rng.integers(0, 1 + qlens[b] // 6))
+        t[b, rng.integers(0, tlens[b], nm)] = rng.integers(0, 4, nm)
+    strong = np.where(np.eye(5, dtype=bool), 4, -2)
+    strong[4, :] = strong[:, 4] = -1
+    mats = np.stack([opt.gamat, opt.ctmat, strong]).astype(np.int32)
+    u8 = rng.integers(0, 2, B).astype(np.int32)
+    minsc = np.full(B, opt.min_seed_len * opt.a, np.int32)
+    endsc = np.where(rng.random(B) < 0.2, rng.integers(20, 120, B),
+                     0x10000).astype(np.int32)
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    return (q, qlens, t, tlens, mats, msel), sc, (minsc, endsc, u8)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -179,10 +225,11 @@ def smoke(work: str) -> int:
 
     # 2. build, one nvcc for each source, all started together
     from biscuit_tpu_torch import kernels
-    from biscuit_tpu_torch.ops import chain_batch, seed_batch, sw_extend, sw_global
+    from biscuit_tpu_torch.ops import (chain_batch, seed_batch, sw_extend,
+                                       sw_global, sw_local)
     t0 = time.perf_counter()
     libs = (sw_extend._lib, sw_global._lib, seed_batch._lib,
-            seed_batch._seed_lib, chain_batch._lib)
+            seed_batch._seed_lib, chain_batch._lib, sw_local._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -404,51 +451,76 @@ def smoke(work: str) -> int:
         f"plain {cuda_ms(pw, 1):.4f} ms for 2^16, equal on 2^16 [{card}]")
     del fmb, bidx
 
-    # 4. the align slice end to end, through the CLI entry point
+    # 4. the SE align slice end to end, through the CLI entry point
     from biscuit_tpu_torch import cli
     from biscuit_tpu_torch.align import device_engine
-    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI
+    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI, MEM_F_PE
     from biscuit_tpu.index.fmindex import BisIndex
-    from biscuit_tpu.io.fastq import fastq_iter, read_batch
     from biscuit_tpu_torch.align.pipeline import AlignerState, process_seqs
+    from torch_testdata import damage_mates, load_pairs
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    device_engine.reset_stages()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["align", fa, fq])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    rep = device_engine.stage_report()
-    if rc != 0:
-        raise AssertionError(f"align exited {rc}")
-    sam = buf.getvalue()
-    body = [ln for ln in sam.splitlines() if not ln.startswith("@")]
-    prim = [ln.split("\t") for ln in body
-            if not int(ln.split("\t")[1]) & 0x900]
-    if len(prim) != N_READS or any(len(f) < 11 for f in prim):
-        raise AssertionError(f"{len(prim)} primary records for {N_READS} reads")
+
+    def align(argv):
+        """The CLI on the card, every count set to 0 just before it and read
+        just after: (SAM records, wall s, launches, stage report)."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        device_engine.reset_stages()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["align", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        rep = device_engine.stage_report()
+        if rc != 0:
+            raise AssertionError(f"align {argv} exited {rc}")
+        body = [ln for ln in buf.getvalue().splitlines()
+                if not ln.startswith("@")]
+        return body, wall, launches, rep
+
+    def primaries(body, n):
+        """One primary record a read, each mapped one with a position and
+        a CIGAR."""
+        prim = [ln.split("\t") for ln in body
+                if not int(ln.split("\t")[1]) & 0x900]
+        if len(prim) != n or any(len(f) < 11 for f in prim):
+            raise AssertionError(f"{len(prim)} primary records for {n} reads")
+        for f in prim:
+            if not int(f[1]) & 4 and (int(f[3]) < 1 or f[5] == "*"):
+                raise AssertionError(f"bad mapped record {f[:6]}")
+        return prim
+
+    def host_sam(seqs, flag, n_threads=1):
+        """The port's host engine on seqs: (SAM, seconds)."""
+        opt = MemOpt()
+        opt.flag |= MEM_F_NO_MULTI | flag
+        opt.n_threads = n_threads
+        for s in seqs:
+            s.comment = None
+        t1 = time.perf_counter()
+        process_seqs(opt, AlignerState(BisIndex.load(fa)), seqs, 0)
+        return "".join(s.sam for s in seqs), time.perf_counter() - t1
+
+    def check_lanes(rep, n_lanes, tag):
+        say(f"[{tag}] lanes redone on host: seeding {rep['seed_overflow_lanes']}, "
+            f"chaining {rep['chain_host_lanes']} of {n_lanes}; traceback "
+            f"overflow {rep['traceback_overflow_lanes']}")
+        # a kernel that flagged every lane must not pass behind the host rerun
+        if rep["seed_overflow_lanes"] > n_lanes // 100:
+            raise AssertionError("over 1% of the seeding lanes ran on the host")
+        if rep["chain_host_lanes"] > n_lanes // 10:
+            raise AssertionError("over 10% of the chaining lanes ran on the host")
+
+    body, wall, launches, rep = align([fa, fq])
+    prim = primaries(body, N_READS)
     mapped = sum(1 for f in prim if not int(f[1]) & 4)
     if mapped < 0.9 * N_READS:
         raise AssertionError(f"only {mapped} of {N_READS} reads mapped")
-    for f in prim:
-        if not int(f[1]) & 4 and (int(f[3]) < 1 or f[5] == "*"):
-            raise AssertionError(f"bad mapped record {f[:6]}")
     # the first N_CHECK reads through the port's host engine
-    opt = MemOpt()
-    opt.flag |= MEM_F_NO_MULTI
-    host = read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK]
-    for s in host:
-        s.comment = None
-    t1 = time.perf_counter()
-    process_seqs(opt, AlignerState(BisIndex.load(fa)), host, 0)
-    host_s = time.perf_counter() - t1
-    want = "".join(s.sam for s in host)
-    got = "".join(ln + "\n" for ln in body)
-    if not got.startswith(want):
+    want, host_s = host_sam(read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK], 0)
+    if not "".join(ln + "\n" for ln in body).startswith(want):
         raise AssertionError("device SAM differs from the host engine's "
                              f"in the first {N_CHECK} reads")
     n_ind = sum(1 for f in prim if "I" in f[5] or "D" in f[5])
@@ -456,21 +528,118 @@ def smoke(work: str) -> int:
         f"first {N_CHECK} SAM byte-identical to the host engine "
         f"({host_s:.1f} s on host)")
     say(f"[4] stages (s): {json.dumps({k: round(v, 3) for k, v in rep.items()})}")
-    say(f"[4] lanes redone on host: seeding {rep['seed_overflow_lanes']}, "
-        f"chaining {rep['chain_host_lanes']} of {2 * N_READS}; traceback "
-        f"overflow {rep['traceback_overflow_lanes']}")
-    # a kernel that flagged every lane must not pass behind the host rerun
-    if rep["seed_overflow_lanes"] > 2 * N_READS // 100:
-        raise AssertionError("over 1% of the seeding lanes ran on the host")
-    if rep["chain_host_lanes"] > 2 * N_READS // 10:
-        raise AssertionError("over 10% of the chaining lanes ran on the host")
+    check_lanes(rep, 2 * N_READS, "4")
     say(f"[4] launches: {json.dumps(launches)}")
     say(f"[4] align wall {wall:.2f} s = {N_READS / wall:.1f} reads/s "
         f"(engine stages {rep['total_s']:.2f} s) [{card}]")
     for r in table:
-        r["launches"] = launches.get(r["name"], 0)
-        if r["launches"] < 1:
-            raise AssertionError(f"{r['name']} never launched on the align path")
+        if launches.get(r["name"], 0) < 1:
+            raise AssertionError(f"{r['name']} never launched on the SE path")
+
+    # 4b. the PE align slice end to end. The generator draws the genome
+    # first, so the same seed and size write the same genome.fa, and the
+    # phase-4 index serves. Every third mate 2 is damaged at every 9th base
+    # (no exact 19-mer left): only mate rescue can place it.
+    t0 = time.perf_counter()
+    pfa, (fq1, fq2), _ = make_dataset(
+        os.path.join(work, "pe"), genome_size=GENOME, n_reads=N_PAIRS,
+        read_len=READ_LEN, seed=SEED, snp_rate=0.001, pe=True, index=False)
+    with open(fa, "rb") as f1, open(pfa, "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("the PE data's genome differs from phase 4's")
+    damage_mates(fq2, DAMAGE_EVERY)
+    say(f"[4b] data: {N_PAIRS} pairs of {READ_LEN} bp, every "
+        f"{DAMAGE_EVERY}rd mate 2 damaged, in {time.perf_counter() - t0:.1f} s")
+    caught = []  # K7's calls on the path, for its row of the kernel table
+    real_local = sw_local.sw_local_batch
+    sw_local.sw_local_batch = lambda *a: caught.append(a) or real_local(*a)
+    try:
+        pbody, pwall, plaunch, prep = align([fa, fq1, fq2])
+    finally:
+        sw_local.sw_local_batch = real_local
+    pprim = primaries(pbody, 2 * N_PAIRS)
+    pmapped = sum(1 for f in pprim if not int(f[1]) & 4)
+
+    def damaged_mapped(prim):
+        damaged = [prim[2 * p + 1] for p in range(0, N_PAIRS, DAMAGE_EVERY)]
+        return sum(1 for f in damaged if not int(f[1]) & 4), len(damaged)
+
+    dmapped, n_damaged = damaged_mapped(pprim)
+    # the same reads with rescue off: the damaged mates it placed go unmapped
+    sbody, swall, slaunch, srep = align(["-S", fa, fq1, fq2])
+    smapped, _n = damaged_mapped(primaries(sbody, 2 * N_PAIRS))
+    # the whole chunk through the port's host engine: the insert-size
+    # statistics span the chunk; its worker1 runs in a fork pool
+    want, host_s = host_sam(load_pairs(fq1, fq2), MEM_F_PE, os.cpu_count() or 1)
+    if "".join(ln + "\n" for ln in pbody) != want:
+        raise AssertionError("PE device SAM differs from the host engine's")
+    say(f"[4b] align: {2 * N_PAIRS} reads, {pmapped} mapped, damaged mates "
+        f"{dmapped} of {n_damaged} mapped ({smapped} with rescue off, -S, "
+        f"{swall:.2f} s); SAM of the whole chunk byte-identical to the host "
+        f"engine ({host_s:.1f} s on host)")
+    say(f"[4b] stages (s): {json.dumps({k: round(v, 3) for k, v in prep.items()})}")
+    check_lanes(prep, 2 * 2 * N_PAIRS, "4b")
+    say(f"[4b] launches: {json.dumps(plaunch)}; rescue lanes "
+        f"{prep['rescue_lanes']} in {len(caught)} K7 calls")
+    say(f"[4b] PE align wall {pwall:.2f} s = {2 * N_PAIRS / pwall:.1f} reads/s "
+        f"(engine stages {prep['total_s']:.2f} s, rescue "
+        f"{prep.get('rescue', 0.0):.3f} s) [{card}]")
+    if plaunch.get("sw_local", 0) < 2 or prep["rescue_lanes"] < 1:
+        raise AssertionError("mate rescue did not run K7 on the PE path")
+    if slaunch.get("sw_local", 0) or srep["rescue_lanes"]:
+        raise AssertionError("K7 ran under -S")
+    if dmapped <= smapped:
+        raise AssertionError(f"rescue placed no damaged mate ({dmapped} "
+                             f"mapped with it, {smapped} without)")
+
+    # K7 against its plain version: each call caught on the PE path, then
+    # numpy-seeded lanes (i16 and u8, saturating, odd qlens, endsc breaks)
+    keys = ("gmax", "te", "qe", "shift", "sat", "imax_rows")
+
+    def local_fns(a):
+        q, ql, t, tl, mats, msel, o_del, e_del, o_ins, e_ins, mn, en, u8 = a
+        mat_b = mats.to(torch.int32)[msel.long()].reshape(-1, 25)
+        k = lambda: sw_local.sw_local_batch(*a)
+        p = lambda: sw_local.sw_local_batch_plain(
+            q, ql, t, tl, mat_b, mn, en, u8, o_del, e_del, o_ins, e_ins)
+        return k, p
+
+    def local_check(name, a):
+        kf, pf = local_fns(a)
+        got, want = kf(), pf()
+        return compare(name, tuple(got[k] for k in keys),
+                       tuple(want[k] for k in keys)), got
+
+    err = 0
+    for i, a in enumerate(caught):
+        err = max(err, local_check(f"sw_local path call {i}", a)[0])
+    n_seeded = 4096
+    first, sc, last = local_case(rng, n_seeded, 160, 450)
+    seeded = (*(T(x) for x in first), *sc, *(T(x) for x in last))
+    e2, got = local_check("sw_local seeded lanes", seeded)
+    n_sat, n_u8 = int(got["sat"].sum()), int(seeded[-1].sum())
+    if n_sat == 0 or n_u8 in (0, n_seeded):
+        raise AssertionError(f"seeded K7 lanes: {n_sat} saturated, {n_u8} u8")
+    fwd = caught[0]  # the forward pass: every candidate of the chunk
+    kf, pf = local_fns(fwd)
+    ms = cuda_ms(kf, 20)
+    # cells each lane computed: its striped width times the rows it ran.
+    # One thread walks a lane, so the longest lane bounds the kernel.
+    width = torch.where(fwd[-1] > 0, 16, 8)
+    cells = ((fwd[1] + width - 1) // width * width
+             * (kf()["imax_rows"] != sw_local.NEGB).sum(0))
+    row("sw_local", "sw_local.cu", "biscuit_tpu/ops/sw_local.py:41",
+        max(err, e2), ms, cuda_ms(pf, 1),
+        f"path: {len(caught)} calls, forward B={fwd[0].shape[0]} "
+        f"Lq={fwd[0].shape[1]} Lt={fwd[2].shape[1]}, {int(cells.sum())} "
+        f"cells, longest lane {int(cells.max())} "
+        f"({ms * 1e6 / max(int(cells.max()), 1):.1f} ns a cell); "
+        f"+ {n_seeded} seeded lanes ({n_u8} u8, {n_sat} saturated)")
+    for r in table:
+        n_se, n_pe = launches.get(r["name"], 0), plaunch.get(r["name"], 0)
+        r["launches"] = n_se + n_pe
+        if n_pe < 1:
+            raise AssertionError(f"{r['name']} never launched on the PE path")
 
     # 5. jax stayed out
     if "jax" in sys.modules:

@@ -1,12 +1,13 @@
-"""The torch port's SE align slice vs the JAX package, on the CPU.
+"""The torch port's align slice (SE and PE) vs the JAX package, on the CPU.
 
 The port's process_seqs_device (plain torch versions of the kernels) must
 write SAM byte-identical to the JAX device engine and to the JAX host
-engine, with seeding and the chain scan on its batched path; its `align`
-CLI must write what it writes in-process; it must never import jax; and
-its copies of the host align modules must stay their sources' code with
-only the imports changed (and, in chain.py, mem_chain_batch's call into
-the port's chain scan).
+engine, SE and PE (mate rescue on, and off under -S), with seeding, the
+chain scan and mate rescue on its batched path; its `align` CLI must write
+what it writes in-process, for SE, two FASTQs and interleaved mates (-p);
+it must never import jax; and its copies of the host align modules must
+stay their sources' code with only the imports changed (and, in chain.py,
+mem_chain_batch's call into the port's chain scan).
 """
 import ast
 import os
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI, MEM_F_PE
+from biscuit_tpu.config import (MemOpt, MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
+                                MEM_F_PE)
 from biscuit_tpu.align.pipeline import AlignerState, process_seqs
 from biscuit_tpu.align.device_engine import process_seqs_device as jax_device
 from biscuit_tpu_torch import kernels
@@ -25,7 +27,8 @@ from biscuit_tpu_torch.align import pipeline as tpipe
 from biscuit_tpu_torch.align.device_engine import (process_seqs_device,
                                                    reset_stages, stage_report)
 
-from torch_testdata import REPO, load_reads, make_dataset
+from torch_testdata import (REPO, damage_mates, load_pairs, load_reads,
+                            make_dataset)
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -112,33 +115,179 @@ def test_cli_align_matches_in_process(data, port_sam):
     assert body == "".join(port_sam[0])
 
 
-def test_port_never_imports_jax(data):
-    """Import the CLI and align one read (`-1`) through the CPU engine."""
+def test_port_never_imports_jax(data, pe_data):
+    """Import the CLI and align one read (`-1`) and one pair (`-1`/`-2`)
+    through the CPU engine."""
     fa, fq, _idx = data
     with open(fq) as f:
         read = f.read().splitlines()[1]
+    pfa, (fq1, fq2), _pidx = pe_data
+    mates = []
+    for path in (fq1, fq2):  # pair 1: mate 2 is undamaged
+        with open(path) as f:
+            mates.append(f.read().splitlines()[5])
     code = (
         "import contextlib, io, sys\n"
         "from biscuit_tpu_torch import cli\n"
-        "buf = io.StringIO()\n"
-        "with contextlib.redirect_stdout(buf):\n"
-        f"    rc = cli.main(['align', '-1', {read!r}, {fa!r}])\n"
-        "sam = [ln for ln in buf.getvalue().splitlines() if ln[:1] != '@']\n"
-        "print(rc, sam[0].split()[2], 'jax' in sys.modules)\n")
+        "def run(argv):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        rc = cli.main(['align'] + argv)\n"
+        "    return rc, [ln.split() for ln in buf.getvalue().splitlines()\n"
+        "                if ln[:1] != '@']\n"
+        f"rc, se = run(['-1', {read!r}, {fa!r}])\n"
+        f"rc2, pe = run(['-1', {mates[0]!r}, '-2', {mates[1]!r}, {pfa!r}])\n"
+        "print(rc, se[0][2], rc2, len(pe), *(int(f[1]) for f in pe),\n"
+        "      pe[0][2], 'jax' in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    rc, chrom, has_jax = r.stdout.split()
+    rc, chrom, rc2, n_pe, flag1, flag2, pchrom, has_jax = r.stdout.split()
     assert rc == "0" and chrom.startswith("chr") and has_jax == "False"
+    # one record per mate, both paired (0x1) and mapped, as read 1 and 2
+    assert rc2 == "0" and n_pe == "2" and pchrom.startswith("chr")
+    for flag, mate in ((int(flag1), 0x40), (int(flag2), 0x80)):
+        assert flag & 0x1 and not flag & 0x4 and flag & mate
 
 
-def test_pe_raises_not_implemented(data):
-    _fa, fq, idx = data
+# ---------------------------------------------------------------------------
+# paired-end: the PE branch of process_seqs_device with mate rescue (K7)
+# ---------------------------------------------------------------------------
+
+N_PAIRS = 80
+DAMAGE_EVERY = 3
+
+
+@pytest.fixture(scope="module")
+def pe_data(tmp_path_factory):
+    """60 kbp genome, 80 pairs of 100 bp with SNPs at 2%; every third
+    mate 2 damaged at every 9th base, so that it has no seed and only mate
+    rescue can place it (as tests/test_device_engine.py:94-99)."""
+    d = tmp_path_factory.mktemp("tpe")
+    fa, (fq1, fq2), idx = make_dataset(d, genome_size=60000, n_reads=N_PAIRS,
+                                       seed=23, snp_rate=0.02, pe=True)
+    damage_mates(fq2, DAMAGE_EVERY)
+    return fa, (fq1, fq2), idx
+
+
+def _pe_opt(rescue=True):
     opt = _opt()
-    opt.flag |= MEM_F_PE
-    with pytest.raises(NotImplementedError, match="K7"):
-        process_seqs_device(opt, tpipe.AlignerState(idx),
-                            load_reads(fq, 2), 0, device="cpu")
+    opt.flag |= MEM_F_PE | (0 if rescue else MEM_F_NO_RESCUE)
+    return opt
+
+
+@pytest.fixture(scope="module")
+def port_pe_sam(pe_data):
+    """The port's PE SAM on the CPU, per rescue setting, with its stage
+    report and kernel launches."""
+    _fa, fqs, idx = pe_data
+    out = {}
+    for rescue in (True, False):
+        seqs = load_pairs(*fqs)
+        kernels.reset_launches()
+        reset_stages()
+        process_seqs_device(_pe_opt(rescue), tpipe.AlignerState(idx), seqs,
+                            0, device="cpu")
+        out[rescue] = ([s.sam for s in seqs], stage_report(),
+                       dict(kernels.LAUNCHES))
+    return out
+
+
+def _damaged_mapped(sams):
+    """Primary records of damaged mates (mate 2 of every DAMAGE_EVERY-th
+    pair) that are mapped."""
+    n = 0
+    for p in range(0, len(sams) // 2, DAMAGE_EVERY):
+        for ln in sams[2 * p + 1].splitlines():
+            flag = int(ln.split("\t")[1])
+            n += not flag & 0x904
+    return n
+
+
+@pytest.mark.parametrize("rescue", [True, False], ids=["rescue", "no_rescue"])
+def test_pe_sam_matches_jax_device_and_host(pe_data, port_pe_sam, rescue):
+    _fa, fqs, idx = pe_data
+    got, report, launches = port_pe_sam[rescue]
+    st = AlignerState(idx)
+    dev_seqs = load_pairs(*fqs)
+    jax_device(_pe_opt(rescue), st, dev_seqs, 0)
+    host_seqs = load_pairs(*fqs)
+    process_seqs(_pe_opt(rescue), st, host_seqs, 0)
+    assert len(got) == 2 * N_PAIRS
+    for g, v, h in zip(got, dev_seqs, host_seqs):
+        assert g == v.sam, f"port: {g}\njax device: {v.sam}"
+        assert g == h.sam, f"port: {g}\njax host: {h.sam}"
+    assert report["seed"] > 0 and report["chain_scan"] > 0
+    assert report["extend"] > 0 and report["cigar"] > 0
+    assert not any(launches.values())
+    if rescue:
+        # K7's plain version ran, and rescue placed damaged mates that the
+        # run without it leaves unmapped
+        assert report["rescue"] > 0 and report["rescue_lanes"] > 0
+        placed = _damaged_mapped(got) - _damaged_mapped(port_pe_sam[False][0])
+        assert placed >= 1
+    else:
+        assert "rescue" not in report and report["rescue_lanes"] == 0
+
+
+def test_matesw_batch_matches_sequential(pe_data):
+    """The port's matesw_batch over its K7 (plain on the CPU) leaves the
+    region lists identical to the sequential per-pair matesw loop, the
+    order-dependent skips and dedup insertions included (model:
+    tests/test_device_engine.py:69-125)."""
+    import copy
+    from biscuit_tpu_torch.align.device_engine import DeviceAligner
+    from biscuit_tpu_torch.align.pair import pestat
+    from biscuit_tpu_torch.align.region import matesw, matesw_batch
+    _fa, fqs, idx = pe_data
+    st = tpipe.AlignerState(idx)
+    seqs = load_pairs(*fqs)
+    opt = _pe_opt()
+    dev = DeviceAligner(st, "cpu")
+    regs = dev.regs_for_batch(opt, seqs)
+    pes = pestat(opt, idx, regs)
+    regs_a, regs_b = copy.deepcopy(regs), copy.deepcopy(regs)
+    for i in range(N_PAIRS):
+        matesw(opt, idx, pes, (seqs[2 * i], seqs[2 * i + 1]),
+               (regs_a[2 * i], regs_a[2 * i + 1]))
+    pairs = [((seqs[2 * i], seqs[2 * i + 1]), (regs_b[2 * i], regs_b[2 * i + 1]))
+             for i in range(N_PAIRS)]
+    matesw_batch(opt, idx, pes, pairs, dev.sw_local_batch_fn(opt))
+    n_rescued = 0
+    for i in range(len(seqs)):
+        la, lb = regs_a[i], regs_b[i]
+        assert len(la) == len(lb), f"read {i}: {len(la)} vs {len(lb)} regions"
+        n_rescued += len(la) != len(regs[i])
+        for a, b in zip(la, lb):
+            for f in ("rb", "re", "qb", "qe", "rid", "score", "truesc",
+                      "csub", "sub", "seedcov", "secondary", "bss", "parent"):
+                assert getattr(a, f) == getattr(b, f), f"read {i} field {f}"
+    assert n_rescued > 0, "no rescue happened; strengthen the data"
+
+
+@pytest.mark.parametrize("layout", ["two_files", "interleaved"])
+def test_cli_pe_matches_in_process(pe_data, port_pe_sam, tmp_path, layout):
+    """`align fa r1.fq r2.fq`, and `align -p fa interleaved.fq` (a second
+    file is then ignored, with a warning), write the in-process PE SAM."""
+    fa, (fq1, fq2), _idx = pe_data
+    if layout == "two_files":
+        argv = [fa, fq1, fq2]
+    else:
+        with open(fq1) as f1, open(fq2) as f2:
+            l1, l2 = f1.read().splitlines(), f2.read().splitlines()
+        inter = tmp_path / "interleaved.fq"
+        inter.write_text("".join(
+            "\n".join(l1[k:k + 4] + l2[k:k + 4]) + "\n"
+            for k in range(0, len(l1), 4)))
+        argv = ["-p", fa, str(inter), fq2]
+    r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli",
+                        "align", *argv], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert ("second query file is ignored" in r.stderr) == (layout != "two_files")
+    body = "".join(ln + "\n" for ln in r.stdout.splitlines()
+                   if not ln.startswith("@"))
+    assert body == "".join(port_pe_sam[True][0])
 
 
 def test_traceback_overflow_lanes_realigned_on_host(data):

@@ -13,11 +13,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
-                 read_len=None, snp_rate=None, indel_every=0):
+                 read_len=None, snp_rate=None, indel_every=0, pe=False,
+                 index=True):
     """Writes genome.fa, its index and reads.fq into directory `d`; returns
     (fasta path, reads path, the in-memory BisIndex). indel_every=k puts a
     small deletion or insertion into two reads of every k (the generator
-    makes none), so that global alignment and its traceback have work."""
+    makes none), so that global alignment and its traceback have work.
+    pe=True writes n_reads pairs instead, and the reads path is the pair
+    (reads_1.fq, reads_2.fq). index=False builds no index (None)."""
     from biscuit_tpu.index.build import build_index
     args = [sys.executable, os.path.join(REPO, "tools", "make_testdata.py"),
             str(d), "--genome-size", str(genome_size), "--n-reads",
@@ -26,13 +29,36 @@ def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
         args += ["--read-len", str(read_len)]
     if snp_rate is not None:
         args += ["--snp-rate", str(snp_rate)]
+    if pe:
+        args.append("--pe")
     subprocess.run(args, check=True, capture_output=True)
-    fq = os.path.join(str(d), "reads.fq")
+    if pe:
+        fq = tuple(os.path.join(str(d), f"reads_{k}.fq") for k in (1, 2))
+    else:
+        fq = os.path.join(str(d), "reads.fq")
     if indel_every:
-        add_indels(fq, indel_every, seed)
+        for f in (fq if pe else (fq,)):
+            add_indels(f, indel_every, seed)
     fa = os.path.join(str(d), "genome.fa")
-    idx = build_index(fa, prefix=fa)
+    idx = build_index(fa, prefix=fa) if index else None
     return fa, fq, idx
+
+
+def damage_mates(fq2, every=3, step=9):
+    """Rewrite mate-2 FASTQ `fq2`: in every `every`-th record (0, every,
+    2*every, ...) each `step`-th base (0, step, ...) moves one letter on in
+    ACGT (N becomes C). No exact 19-mer survives, so the mate has no seed,
+    while Smith-Waterman near its mate still aligns it: the case mate rescue
+    exists for."""
+    nxt = {"A": "C", "C": "G", "G": "T", "T": "A", "N": "C"}
+    with open(fq2) as f:
+        lines = f.read().splitlines()
+    for r in range(0, len(lines) // 4, every):
+        seq = list(lines[4 * r + 1])
+        seq[::step] = [nxt[c] for c in seq[::step]]
+        lines[4 * r + 1] = "".join(seq)
+    with open(fq2, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def add_indels(fq, every, seed):
@@ -62,3 +88,10 @@ def add_indels(fq, every, seed):
 def load_reads(path, n):
     from biscuit_tpu.io.fastq import fastq_iter, read_batch
     return read_batch(fastq_iter(str(path)), None, 1 << 60)[:n]
+
+
+def load_pairs(fq1, fq2):
+    """Every pair of the two FASTQs, mates interleaved, as the CLI reads
+    them."""
+    from biscuit_tpu.io.fastq import fastq_iter, read_batch
+    return read_batch(fastq_iter(str(fq1)), fastq_iter(str(fq2)), 1 << 60)
