@@ -1,10 +1,15 @@
 """biscuit_tpu_torch — the PyTorch + CUDA port of biscuit_tpu.
 
 The JAX package `biscuit_tpu` stays the reference. This package runs
-`align` for single-end reads (FASTQ to SAM) through a torch port of the
-JAX device engine, with its device kernels written by hand in CUDA for
-Hopper (sm_90a) under `kernels/`, each beside a plain torch version that
-the CPU runs. It imports torch and never jax: host modules that do not
-reach jax are imported from `biscuit_tpu`, and the ones that do are copied
-here with only their imports changed.
+`index`, `align` (FASTQ to SAM, single-end and paired-end, through a torch
+port of the JAX device engine), `sort`, `bamindex` and `pileup` (sorted BAM
+to VCF), with its device kernels written by hand in CUDA for Hopper
+(sm_90a) under `kernels/`, each beside a plain torch version that the CPU
+runs. It imports torch, never jax, and nothing of `biscuit_tpu`: every host
+module it needs is a copy of its own, held to its source by
+tests/test_torch_engine.py.
 """
+
+__version__ = "0.1.0"
+# Version of the reference toolchain whose behaviour the package reproduces
+REFERENCE_VERSION = "1.6.1-dev"

@@ -7,8 +7,8 @@ reference position; a sorted list + bisect reproduces the same lower-neighbor
 lookups and in-order traversal.
 
 Copy of biscuit_tpu/align/chain.py. Its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. mem_chain_batch differs in its call into the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. mem_chain_batch differs in its call into the
 chain scan, which is the port's (ops/chain_batch.py) on the tensors of a
 given device, and in leaving out the shape buckets. tests/test_torch_engine.py
 holds the rest of the copy to its source.
@@ -21,11 +21,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from biscuit_tpu.utils.ksort import introsort
-from biscuit_tpu.config import MemOpt
+from ..utils.ksort import introsort
+from ..config import MemOpt
 from ..ops.fm import FMNumpy
-from biscuit_tpu.ops import sw
-from biscuit_tpu.align import bns as bnsmod
+from ..ops import sw
+from ..align import bns as bnsmod
 from . import trace
 from .smem import collect_intv
 

@@ -36,9 +36,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from biscuit_tpu.config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE
-from biscuit_tpu.ops import sw
-from biscuit_tpu.align.io_helpers import read_clipping
+from ..config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE
+from ..ops import sw
+from ..align.io_helpers import read_clipping
 
 from ..ops.seed_batch import FMPair, collect_intv_batch, sa_batch
 from ..ops.sw_extend import sw_extend_batch

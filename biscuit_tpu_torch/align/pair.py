@@ -3,17 +3,17 @@
 Ports mem_pestat / mem_pair / cal_sub (lib/aln/mem_pair.c).
 
 Copy of biscuit_tpu/align/pair.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 import math
 from dataclasses import dataclass
 from typing import List, Tuple
 
-from biscuit_tpu.config import MemOpt
+from ..config import MemOpt
 from .region import AlnReg, AlnRegs, alnreg_isize, hash_64, infer_isize
-from biscuit_tpu.align import bns as bnsmod
+from ..align import bns as bnsmod
 from . import trace
 
 MIN_RATIO = 0.8

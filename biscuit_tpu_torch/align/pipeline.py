@@ -7,8 +7,8 @@ mem_process_seqs (lib/aln/bwamem.c:161-476) and main_align
 the batched TPU device path plugs in at the seeding/extension stages.
 
 Copy of biscuit_tpu/align/pipeline.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 import sys
@@ -16,10 +16,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from biscuit_tpu.config import MemOpt, MEM_F_PE, MEM_F_NOPAIRING, MEM_F_NO_RESCUE
-from biscuit_tpu.index.fmindex import BisIndex
+from ..config import MemOpt, MEM_F_PE, MEM_F_NOPAIRING, MEM_F_NO_RESCUE
+from ..index.fmindex import BisIndex
 from ..ops.fm import FMNumpy
-from biscuit_tpu.align import bns as bnsmod
+from ..align import bns as bnsmod
 from . import sam as sammod
 from . import trace
 from .chain import mem_chain, mem_chain_flt, mem_flt_chained_seeds
@@ -27,8 +27,8 @@ from .pair import PeStat, pestat
 from .region import AlnRegs, mark_primary, matesw, merge_regions
 from .smem import collect_intv
 from . import region as regionmod
-from biscuit_tpu.align.io_helpers import read_clipping
-from biscuit_tpu.io.fastq import BSeq
+from ..align.io_helpers import read_clipping
+from ..io.fastq import BSeq
 
 
 class AlignerState:

@@ -3,8 +3,8 @@ rescue. Ports mem_chain2region* (lib/aln/memchain.c:576-904)
 and mem_alnreg.c (merge :37-227, primary :231-380, matesw :386-513).
 
 Copy of biscuit_tpu/align/region.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 import math
@@ -13,10 +13,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from biscuit_tpu.utils.ksort import introsort
-from biscuit_tpu.config import MemOpt
-from biscuit_tpu.ops import sw
-from biscuit_tpu.align import bns as bnsmod
+from ..utils.ksort import introsort
+from ..config import MemOpt
+from ..ops import sw
+from ..align import bns as bnsmod
 from . import trace
 from .chain import Chain, Seed, getbss
 
@@ -452,7 +452,7 @@ def sort_deduplicate(opt: MemOpt, idx, query, regs: AlnRegs) -> None:
 def merge_regions(opt: MemOpt, idx, query, l_seq: int, regs: AlnRegs) -> None:
     """mem_alnreg.c:208-227."""
     sort_deduplicate(opt, idx, query, regs)
-    from biscuit_tpu.config import MEM_F_SELF_OVLP
+    from ..config import MEM_F_SELF_OVLP
     if opt.flag & MEM_F_SELF_OVLP:
         if regs and regs[0].truesc == l_seq * opt.a:
             del regs[0]

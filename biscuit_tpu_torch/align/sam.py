@@ -6,8 +6,8 @@ mem_alnreg_setSAM / formatSAM / select_format / reg2sam_{se,pe}
 (mem_alnreg_format.c), and mem_approx_mapq_se (bwamem.c:134-157).
 
 Copy of biscuit_tpu/align/sam.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 import math
@@ -16,10 +16,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from biscuit_tpu.config import (MemOpt, MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
+from ..config import (MemOpt, MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
                       MEM_F_NOPAIRING, MEM_F_REF_HDR, MEM_F_SOFTCLIP)
-from biscuit_tpu.ops import sw
-from biscuit_tpu.align import bns as bnsmod
+from ..ops import sw
+from ..align import bns as bnsmod
 from . import trace
 from .region import (AlnReg, AlnRegs, INT_MAX, alnreg_isize, hash_64,
                      is_proper_pair)

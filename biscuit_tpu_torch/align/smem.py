@@ -10,15 +10,15 @@ A seed interval is a 5-tuple (start, end, x0, x1, s): query span [start, end),
 bi-interval (x0 forward rank, x1 complement rank, s size).
 
 Copy of biscuit_tpu/align/smem.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 from typing import List, Tuple
 
 import numpy as np
 
-from biscuit_tpu.config import MemOpt, MEM_F_SELF_OVLP
+from ..config import MemOpt, MEM_F_SELF_OVLP
 from ..ops.fm import FMNumpy
 
 Intv = Tuple[int, int, int, int, int]

@@ -12,8 +12,8 @@ sets it from -v. Traces are only wired through the host (Python) engine —
 the CLI forces that engine when -v >= 4.
 
 Copy of biscuit_tpu/align/trace.py. Only its imports differ: FMNumpy comes
-from biscuit_tpu_torch.ops.fm and the jax-free modules from biscuit_tpu,
-so the port never imports jax. tests/test_torch_engine.py holds the
+from biscuit_tpu_torch.ops.fm and every other module from this package,
+so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
 copy to its source.
 """
 import sys

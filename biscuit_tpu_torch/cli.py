@@ -1,34 +1,74 @@
 """biscuit_tpu_torch command-line interface.
 
-`align` is the port of biscuit_tpu.cli.main_align (the same options and
-batching) running SE and PE reads through the torch device engine
-(align/device_engine.process_seqs_device) on the device named by
+The counterparts of biscuit_tpu.cli's `index`, `align`, `sort`, `bamindex`
+and `pileup`, with the same options and the same output. `align` runs SE
+and PE reads through the torch device engine
+(align/device_engine.process_seqs_device) and `pileup` makes the count
+matrices of every window (ops/pileup_count.py) on the device named by
 BISCUIT_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs the plain torch
-versions of the kernels). SAM goes to stdout. Every other subcommand is
-biscuit_tpu.cli.main unchanged.
+versions of the kernels). SAM and VCF go to stdout unless `-o` names a
+file. Any other subcommand of biscuit_tpu is answered with "not ported
+yet" and exit code 1.
 
+    python -m biscuit_tpu_torch.cli index <genome.fa>
     python -m biscuit_tpu_torch.cli align <genome.fa> <reads.fq> > out.sam
     python -m biscuit_tpu_torch.cli align <genome.fa> <r1.fq> <r2.fq> > pe.sam
     python -m biscuit_tpu_torch.cli align -p <genome.fa> <interleaved.fq>
+    python -m biscuit_tpu_torch.cli sort -o out.bam out.sam
+    python -m biscuit_tpu_torch.cli pileup -o out.vcf <genome.fa> out.bam
 """
 import getopt
 import math
+import os
 import sys
+import time
 
 import numpy as np
 
-from biscuit_tpu import __version__
+from . import __version__, REFERENCE_VERSION
+
+
+def main_index(argv):
+    from .index.build import build_index
+    prefix = None
+    mmap_fmt = False
+    opts, args = getopt.getopt(argv, "6a:p:Mh")
+    for o, a in opts:
+        if o == "-p":
+            prefix = a
+        elif o == "-M":
+            # memory-mapped layout (bwashm equivalent): instant load, pages
+            # shared across concurrent processes
+            mmap_fmt = True
+        elif o == "-h":
+            print("Usage: biscuit_tpu index [options] <in.fasta>\n"
+                  "  -p STR  index prefix (default: the FASTA path)\n"
+                  "  -M      write the memory-mappable layout (<prefix>.btidx/)",
+                  file=sys.stderr)
+            return 1
+    if not args:
+        print("Missing FASTA reference", file=sys.stderr)
+        return 1
+    fasta = args[0]
+    if prefix is None:
+        prefix = fasta
+    if mmap_fmt:
+        idx = build_index(fasta, prefix=None)
+        idx.save_mmap(prefix)
+    else:
+        build_index(fasta, prefix=prefix)
+    return 0
 
 
 def main_align(argv):
-    from biscuit_tpu.config import (
+    from .config import (
         MemOpt, MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
         MEM_F_NOPAIRING, MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_REF_HDR,
         MEM_F_SELF_OVLP, MEM_F_SMARTPE, MEM_F_SOFTCLIP)
-    from biscuit_tpu.index.fasta import NT4
-    from biscuit_tpu.index.fmindex import BisIndex
-    from biscuit_tpu.align import bns as bnsmod
-    from biscuit_tpu.io.fastq import fastq_iter, read_batch, make_bseq
+    from .index.fasta import NT4
+    from .index.fmindex import BisIndex
+    from .align import bns as bnsmod
+    from .io.fastq import fastq_iter, read_batch, make_bseq
     from .align.pair import PeStat
     from .align.pipeline import AlignerState, process_seqs, sam_header
     from .align.device_engine import DeviceAligner, process_seqs_device
@@ -269,9 +309,7 @@ Input/output options:
     opt.__post_init__()
 
     from .align import trace
-    from biscuit_tpu.align import trace as jax_pkg_trace
     trace.set_verbose(verbose)
-    jax_pkg_trace.set_verbose(verbose)  # read by the shared align/bns.py
 
     device = resolve()
 
@@ -379,12 +417,349 @@ Input/output options:
     return 0
 
 
+def main_pileup(argv):
+    """biscuit pileup port (src/pileup.c:1014-1225): windowed joint
+    methylation + SNP calling to VCF. Counterpart of
+    biscuit_tpu.cli.main_pileup, with the count matrices of every
+    non-verbose window made on the device named by BISCUIT_TPU_TORCH_DEVICE
+    (default `cuda`)."""
+    from .device import resolve
+    from .io.sambam import AlignmentFile
+    from .pileup.common import RefCache, NCONTXTS
+    from .pileup.engine import (STAGES, PileupConf, meth_average_table,
+                                pileup_window, run_windows, vcf_header)
+
+    conf = PileupConf()
+    reg = None
+    tum = nor = None
+    outfn = None
+    statsfn = None
+    opts, args = getopt.getopt(argv, "o:w:g:@:5:3:b:s:E:M:x:C:P:Q:t:n:m:a:l:T:I:SNrcdupv:h")
+    for o, a in opts:
+        c = o[1]
+        if c == "g": reg = a
+        elif c == "@": conf.bt.n_threads = int(a)
+        elif c == "s": conf.bt.step = int(a)
+        elif c == "N": conf.comm.is_nome = 1
+        elif c == "S": conf.somatic = 1
+        elif c == "T": tum = a
+        elif c == "I": nor = a
+        elif c == "o": outfn = a
+        elif c == "w": statsfn = a
+        elif c == "v": conf.comm.verbose = int(a)
+        elif c == "b": conf.filt.min_base_qual = int(a)
+        elif c == "m": conf.filt.min_mapq = int(a)
+        elif c == "a": conf.filt.min_score = int(a)
+        elif c == "t": conf.filt.max_retention = int(a)
+        elif c == "l": conf.filt.min_read_len = int(a)
+        elif c == "5": conf.filt.min_dist_end_5p = int(a)
+        elif c == "3": conf.filt.min_dist_end_3p = int(a)
+        elif c == "r": conf.ambi_redist = 0
+        elif c == "c": conf.filt.filter_secondary = 0
+        elif c == "d": conf.filt.filter_doublecnt = 0
+        elif c == "u": conf.filt.filter_duplicate = 0
+        elif c == "p": conf.filt.filter_ppair = 0
+        elif c == "n": conf.filt.max_nm = int(a)
+        elif c == "E": conf.error = float(a)
+        elif c == "M": conf.mu = float(a)
+        elif c == "x": conf.mu_somatic = float(a)
+        elif c == "C": conf.contam = float(a)
+        elif c == "P": conf.prior1 = float(a)
+        elif c == "Q": conf.prior2 = float(a)
+        elif c == "h":
+            d = PileupConf()
+            print(f"""
+Usage: biscuit_tpu pileup [options] <ref.fa> <in1.bam> [in2.bam ...]
+Som. Mode Usage: biscuit_tpu pileup [options] <-S -T tum.bam -I norm.bam> <ref.fa>
+
+Options:
+    -g STR      Region to process (whole BAM if absent)
+    -@ INT      Number of window workers [{d.bt.n_threads}]; on a CUDA device
+                the windows run in order in the one process that owns the
+                card, whatever INT is (the output is the same)
+    -s INT      Window dispatch step [{d.bt.step}]
+    -N          NOMe-seq mode [off]
+    -S          Somatic mode (requires -T and -I) [off]
+    -T STR      Somatic mode: tumor BAM
+    -I STR      Somatic mode: normal BAM
+
+Output options:
+    -o STR      Output file [stdout]
+    -w STR      Pileup statistics output prefix [same as -o]
+    -v INT      Verbosity (>0 adds DIAGNOSE blocks) [0]
+
+Filter options:
+    -b INT      Minimum base quality [{d.filt.min_base_qual}]
+    -m INT      Minimum mapping quality [{d.filt.min_mapq}]
+    -a INT      Minimum alignment score (AS tag) [{d.filt.min_score}]
+    -t INT      Maximum cytosine retention per read [{d.filt.max_retention}]
+    -l INT      Minimum read length [{d.filt.min_read_len}]
+    -5 INT      Minimum distance to the 5' read end [{d.filt.min_dist_end_5p}]
+    -3 INT      Minimum distance to the 3' read end [{d.filt.min_dist_end_3p}]
+    -r          Do NOT redistribute ambiguous (Y/R) calls in genotyping
+    -c          Do NOT filter secondary mappings
+    -d          Double-count cytosines in overlapping mates
+    -u          Do NOT filter duplicate-flagged reads
+    -p          Do NOT filter improper pairs
+    -n INT      Maximum NM tag [{d.filt.max_nm}]
+
+Genotyping options:
+    -E FLOAT    Error rate [{d.error:.3f}]
+    -M FLOAT    Mutation rate [{d.mu:.3f}]
+    -x FLOAT    Somatic mutation rate [{d.mu_somatic:.3f}]
+    -C FLOAT    Contamination rate [{d.contam:.3f}]
+    -P FLOAT    Prior for a heterozygous variant [{d.prior1:.3f}]
+    -Q FLOAT    Prior for a homozygous variant [{d.prior2:.3f}]
+    -h          This help
+""", file=sys.stderr)
+            return 1
+
+    if conf.somatic:
+        if len(args) < 1:
+            print("Reference input is missing", file=sys.stderr)
+            return 1
+        if not tum or not nor:
+            print("Somatic mode requires -T and -I", file=sys.stderr)
+            return 1
+        reffn = args[0]
+        in_fns = [tum, nor]
+    else:
+        if len(args) < 2:
+            print("Reference or bam input is missing", file=sys.stderr)
+            return 1
+        if tum or nor:
+            print("-T/-I require -S", file=sys.stderr)
+            return 1
+        reffn = args[0]
+        in_fns = args[1:]
+
+    device = resolve()
+    t_open = time.perf_counter()
+    bams = [AlignmentFile(fn) for fn in in_fns]
+    hdr = bams[0].header
+    # sorted targets (alphabetic, like the reference qsort by name)
+    targets = sorted(range(len(hdr.names)),
+                     key=lambda tid: hdr.names[tid])  # list of tids in name order
+    target_pairs = [(hdr.names[t], hdr.lengths[t]) for t in targets]
+
+    out = open(outfn, "w") if outfn else sys.stdout
+    out.write(vcf_header(reffn, target_pairs, ["pileup"] + argv, conf, in_fns))
+
+    rs = RefCache(reffn)
+    STAGES["open"] += time.perf_counter() - t_open
+    n_bams = len(in_fns)
+    # per-sample, per-tid context stats
+    betasum = [{} for _ in range(n_bams)]
+    cnts = [{} for _ in range(n_bams)]
+
+    def window_stats(tid):
+        bs = [betasum[sid].setdefault(tid, [0.0] * NCONTXTS) for sid in range(n_bams)]
+        cs = [cnts[sid].setdefault(tid, [0] * NCONTXTS) for sid in range(n_bams)]
+        return bs, cs
+
+    step = conf.bt.step
+    windows = []  # (tid, name, wbeg, wend)
+    if reg:
+        if ":" in reg:
+            name, rng = reg.split(":", 1)
+            beg, end = rng.replace(",", "").split("-")
+            beg, end = int(beg), int(end)
+        else:
+            name, beg, end = reg, 0, 1 << 29
+        tid = hdr.name2tid(name)
+        if tid < 0:
+            print(f"[main_pileup] unknown region {reg}", file=sys.stderr)
+            return 1
+        beg += 1
+        beg = max(beg, 1)
+        end = min(end, hdr.lengths[tid])
+        wbeg = beg
+        while wbeg < end:
+            windows.append((tid, hdr.names[tid], wbeg, min(wbeg + step, end)))
+            wbeg += step
+    else:
+        for t in targets:
+            tlen = hdr.lengths[t]
+            wbeg = 1
+            while wbeg < tlen:
+                windows.append((t, hdr.names[t], wbeg, min(wbeg + step, tlen)))
+                wbeg += step
+
+    if conf.bt.n_threads > 1 and len(windows) > 1:
+        n_procs = min(conf.bt.n_threads, len(windows))
+        for (tid, _nm, _b, _e), text, wbs, wcs in run_windows(
+                bams, rs, conf, windows, n_procs, device):
+            out.write(text)
+            bs, cs = window_stats(tid)
+            for sid in range(n_bams):
+                for k in range(NCONTXTS):
+                    bs[sid][k] += wbs[sid][k]
+                    cs[sid][k] += wcs[sid][k]
+    else:
+        for tid, name, wbeg, wend in windows:
+            bs, cs = window_stats(tid)
+            out.write(pileup_window(bams, rs, conf, tid, name, wbeg, wend,
+                                    bs, cs, device))
+
+    if out is not sys.stdout:
+        out.close()
+    if not statsfn and outfn:
+        statsfn = outfn
+    if statsfn:
+        with open(statsfn + "_meth_average.tsv", "w") as f:
+            if conf.comm.is_nome:
+                f.write("sample\tchrm\tHCGn\tHCGb\tHCHGn\tHCHGb\tHCHHn\tHCHHb\tHCHn\tHCHb\tGCn\tGCb\n")
+            else:
+                f.write("sample\tchrm\tCGn\tCGb\tCHGn\tCHGb\tCHHn\tCHHb\tCHn\tCHb\n")
+            for sid, fn in enumerate(in_fns):
+                # the reference prints the raw bam path as the sample column
+                # (pileup.c:218 passes c->bam_fns[sid])
+                sample = fn
+                # reproduce the reference's write_func/print_meth_average1
+                # indexing: stats are accumulated by ORIGINAL tid but rows are
+                # emitted in sorted-target order with data taken at index k
+                # and name at sorted_targets[sorted_targets[k].tid]
+                # (pileup.c:128-138); identical whenever name order == tid
+                # order
+                by_row_beta = {}
+                by_row_cnt = {}
+                for k, t in enumerate(targets):
+                    by_row_beta[k] = betasum[sid].get(k, [0.0] * NCONTXTS)
+                    by_row_cnt[k] = cnts[sid].get(k, [0] * NCONTXTS)
+                names = [(hdr.names[targets[t]], hdr.lengths[t])
+                         for t in targets]
+                for line in meth_average_table(conf, sample, names,
+                                               by_row_beta, by_row_cnt):
+                    f.write(line)
+    return 0
+
+
+def main_sort(argv):
+    """Utility (not in the reference, which delegates to samtools): sort a
+    SAM/BAM by coordinate and write BAM (or SAM with -O sam). Inputs larger
+    than the -m record budget spill to sorted temp runs merged with a k-way
+    heap (samtools-style external sort)."""
+    from .io.sambam import (AlignmentFile, _is_bam, stream_bam_records,
+                            write_bam, write_sam)
+    out = None
+    fmt = "bam"
+    max_mem_records = 2_000_000
+    opts, args = getopt.getopt(argv, "o:O:m:h")
+    for o, a in opts:
+        if o == "-o":
+            out = a
+        elif o == "-O":
+            fmt = a
+        elif o == "-m":
+            max_mem_records = int(a)
+    if not args or not out:
+        print("Usage: biscuit_tpu sort -o out.bam [-O bam|sam]"
+              " [-m max-records-in-memory] <in.sam|in.bam>", file=sys.stderr)
+        return 1
+
+    key = lambda r: (r.tid if r.tid >= 0 else 1 << 30, r.pos)
+    if _is_bam(args[0]):
+        hdr = None
+        it = stream_bam_records(args[0])
+        # need the header separately
+        from .io.sambam import _parse_bam_header_streaming
+        hdr = _parse_bam_header_streaming(args[0])
+    else:
+        af = AlignmentFile(args[0])
+        hdr = af.header
+        it = iter(af)
+
+    import heapq
+    import tempfile
+
+    runs = []          # paths of spilled sorted runs
+    chunk = []
+    tmpdir = None
+    for r in it:
+        chunk.append(r)
+        if len(chunk) >= max_mem_records:
+            chunk.sort(key=key)
+            if tmpdir is None:
+                tmpdir = tempfile.mkdtemp(prefix="btsort")
+            runp = os.path.join(tmpdir, f"run{len(runs)}.bam")
+            write_bam(runp, hdr, chunk)
+            runs.append(runp)
+            chunk = []
+    chunk.sort(key=key)
+
+    if not any(l.startswith("@HD") for l in hdr.lines):
+        hdr.lines.insert(0, "@HD\tVN:1.6\tSO:coordinate")
+
+    if not runs:
+        recs = chunk
+    else:
+        streams = [stream_bam_records(p) for p in runs] + [iter(chunk)]
+        recs = heapq.merge(*streams, key=key)
+    if fmt == "sam":
+        write_sam(out, hdr, recs)
+    else:
+        write_bam(out, hdr, recs)
+    if runs:
+        import shutil
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return 0
+
+
+def main_bamindex(argv):
+    """Utility (reference workflows use `samtools index`): build a
+    samtools-compatible .bai index for a coordinate-sorted BAM, enabling
+    streamed region queries (io/bai.py)."""
+    opts, args = getopt.getopt(argv, "h")
+    if not args:
+        print("Usage: biscuit_tpu bamindex <in.bam>", file=sys.stderr)
+        return 1
+    from .io.bai import build_bai
+    build_bai(args[0]).write(args[0] + ".bai")
+    return 0
+
+
+SUBCOMMANDS = {
+    "index": main_index,
+    "align": main_align,
+    "pileup": main_pileup,
+    "sort": main_sort,
+    "bamindex": main_bamindex,
+}
+# subcommands of biscuit_tpu that the port does not have yet
+NOT_PORTED = ("vcf2bed", "mergecg", "epiread", "asm", "bsstrand", "bsconv",
+              "cinread", "qc", "bc", "rectangle", "tview")
+
+
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    if argv and argv[0] == "align":
-        return main_align(argv[1:])
-    from biscuit_tpu.cli import main as jax_pkg_main
-    return jax_pkg_main(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(f"""
+Program: biscuit_tpu_torch (the PyTorch + CUDA port of biscuit_tpu)
+Version: {__version__} (behavioral parity target: biscuit {REFERENCE_VERSION})
+
+Usage: python -m biscuit_tpu_torch.cli <command> [options]
+
+Command:
+    index        Index reference genome sequences in the FASTA format
+    align        Align bisulfite-treated short reads (adapted BWA-MEM)
+    sort         Coordinate-sort SAM/BAM
+    bamindex     Write a .bai index for a sorted BAM
+    pileup       Pileup cytosines and mutations to VCF
+    version      Print the version
+
+Not ported yet: {", ".join(NOT_PORTED)}
+""", file=sys.stderr)
+        return 1
+    if argv[0] == "version":
+        print(f"biscuit_tpu_torch {__version__} "
+              f"(reference parity {REFERENCE_VERSION})")
+        return 0
+    cmd = SUBCOMMANDS.get(argv[0])
+    if cmd is None:
+        print(f"[biscuit_tpu_torch] '{argv[0]}' is not ported yet",
+              file=sys.stderr)
+        return 1
+    return cmd(argv[1:])
 
 
 if __name__ == "__main__":

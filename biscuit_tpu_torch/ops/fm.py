@@ -11,7 +11,7 @@ Rank-space conventions (careful — parity-critical):
 """
 import numpy as np
 
-from biscuit_tpu.index.fmindex import StrandIndex
+from ..index.fmindex import StrandIndex
 
 OCC_SHIFT = 7  # 128 bases/block
 WORDS_PER_BLOCK = 8

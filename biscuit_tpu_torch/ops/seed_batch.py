@@ -20,8 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from biscuit_tpu.config import MEM_F_SELF_OVLP
-from biscuit_tpu.index.fmindex import BisIndex
+from ..config import MEM_F_SELF_OVLP
+from ..index.fmindex import BisIndex
 
 from .. import kernels
 

@@ -30,10 +30,12 @@ def band_clamp(qlens, w_in, end_bonus, mats, o_del, e_del, o_ins, e_ins):
 
 
 def sw_extend_batch_plain(query, qlens, target, tlens, mat_b, w, h0,
-                          o_del, e_del, o_ins, e_ins, zdrop):
+                          o_del, e_del, o_ins, e_ins, zdrop, filled=None):
     """query [B, Lq], target [B, Lt] int32 codes; qlens, tlens, w (already
     clamped), h0 [B] int32; mat_b [B, 25] per-lane matrix (row = target
-    char). Returns [6, B] int32."""
+    char). Returns [6, B] int32. `filled`, a [B] int64 tensor, receives the
+    DP cells each lane fills: the columns [beg, end) of every row it runs
+    before it breaks, which are the cells the kernel's lane fills too."""
     B, Lq = query.shape
     Lt = target.shape[1]
     dev = query.device
@@ -71,6 +73,8 @@ def sw_extend_batch_plain(query, qlens, target, tlens, mat_b, w, h0,
         collapsed = act & (beg_i >= end_i)
         run = act & (beg_i < end_i)
         at_tail = end_i == qlens
+        if filled is not None:
+            filled += torch.where(run, end_i - beg_i, zero)
 
         S = prof[lane, target[:, i].long()]                     # [B, Lq]
         h1_first = torch.where(

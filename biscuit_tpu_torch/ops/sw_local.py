@@ -20,7 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from biscuit_tpu.ops.sw import KswResult
+from ..ops.sw import KswResult
 
 from .. import kernels
 

@@ -5,11 +5,18 @@
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
-  2. build the six CUDA sources of the align slice with nvcc, in parallel
+  2. build the seven CUDA sources of the align and pileup slices with nvcc,
+     in parallel
   3. each kernel against its plain torch version on the card, on
-     numpy-seeded inputs or the phase-4 reads at the shapes of the align
-     path: exact equality (torch.equal), and both times from CUDA events;
-     the seeder and the SA walk also on a 50 Mbp index (tables twice the L2)
+     numpy-seeded inputs or the phase-4 reads at the shapes of its path:
+     exact equality (torch.equal), both times from CUDA events, the least
+     time the card could take for the same work (bound_ms: the larger of
+     bytes over the memory rate and integer operations over the integer
+     rate; a DP kernel's operations are those of the cells its lanes really
+     fill, early breaks taken off) and, for the count scatter-add, the time
+     of the one PyTorch call
+     that computes it; the seeder and the SA walk also on a 50 Mbp index
+     (tables twice the L2)
   4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
      reads (tools/make_testdata.py, plus SNPs and small indels so that
      global alignment has work), the index built in-process, then the
@@ -24,7 +31,17 @@ Phases, one line each (more for the kernel table):
      rescue off (-S). Then K7's row of the kernel table: its calls caught
      on this path, and numpy-seeded i16, saturating u8 and odd-qlen lanes,
      against its plain version
-  5. no jax module was imported
+  6. the pileup slice end to end: a 400 kbp genome at 30x (80,000 directional
+     WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
+     card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
+     the card with the default 100,000 bp window step, so that full-size
+     windows of about 3 x 10^6 data reach K9; the VCF must equal, without
+     its ##program line, the VCF of the same CLI in a process of its own on
+     the CPU (plain counts), K9 must have launched twice a window that held
+     data, and the VCF must hold methylation lines and ALT alleles. Then
+     the same pileup once more and once under torch.profiler: stage seconds
+     of each run, the card's busy time and idle share, device time by name
+  5. (last) neither jax nor any module of the JAX package was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
 """
@@ -43,6 +60,20 @@ SEED = 7
 GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
 N_PAIRS, DAMAGE_EVERY = 2048, 3  # phase 4b: pairs; every 3rd mate 2 damaged
 BIG_GENOME, BIG_CHECK = 50_000_000, 1024  # 50 Mbp: lanes held to plain
+# phase 6: 2 chromosomes of 200 kbp at 30x, so four full 100 kbp windows
+PLP_GENOME, PLP_READS = 400_000, 80_000
+PLP_WINDOW, PLP_DATA = 100_000, 3_000_000   # K9's shape on that path
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of
+# device memory, and 67 TFLOP/s of float32 outside the tensor cores. The
+# kernels here do int32 arithmetic, for which the data sheet gives no rate:
+# an FMA counts two operations and an SM has half as many int32 lanes as
+# float32 lanes, so the integer rate is taken as a quarter of that figure.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 4
+# integer operations a DP cell costs (adds, maxima and compares of the
+# affine-gap recurrence; the global kernel also packs direction bits)
+CELL_OPS = {"sw_extend": 12, "sw_global": 14, "sw_local": 14}
 N_CHECK = 512            # reads whose SAM is held to the host engine
 
 
@@ -72,11 +103,51 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes once and to do n_ops integer operations, and which is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def band_cells(qlens, tlens, w):
+    """DP cells inside the band |i - j| <= w of every lane, rows i < tlen,
+    columns j < qlen: what global alignment fills. An extension that ends
+    early (z-drop, a narrowed band) fills fewer, so for K1 this is only the
+    upper figure beside the count of the cells its lanes really fill."""
+    import torch
+    i = torch.arange(int(tlens.max()), device=qlens.device)[None, :]
+    lo = (i - w[:, None]).clamp(min=0)
+    hi = torch.minimum(qlens[:, None], i + w[:, None] + 1)
+    return int(((hi - lo).clamp(min=0) * (i < tlens[:, None])).sum())
+
+
+def count_case(rng, window, n_bams, n, p_invalid):
+    """K9's inputs as the pileup engine makes them for a window of
+    `window` sites and n_bams samples: reads of 150 bases in coordinate
+    order, each base one datum at position site * n_bams + sample with a
+    code base * 3 + meth in [0, 21): (positions, codes, valid) as int64 /
+    bool numpy arrays of n data."""
+    import numpy as np
+    n_reads = n // 150
+    start = np.sort(rng.integers(0, window - 150, n_reads))
+    site = (start[:, None] + np.arange(150)[None, :]).reshape(-1)
+    sample = np.repeat(rng.integers(0, n_bams, n_reads), 150)
+    codes = rng.integers(0, 7, site.size) * 3 + rng.integers(0, 3, site.size)
+    valid = rng.random(site.size) >= p_invalid
+    return site * n_bams + sample, codes, valid
+
+
 def lanes_of(fq, n_reads):
     """The seeder's input for the first n_reads of fq, each read converted
     both ways as the engine plans SE lanes: (reads [2n, L] int32, lens,
     parents) as numpy."""
-    from biscuit_tpu.io.fastq import fastq_iter, read_batch
+    from biscuit_tpu_torch.io.fastq import fastq_iter, read_batch
     from biscuit_tpu_torch.align.device_engine import pack_lanes
     seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:n_reads]
     return pack_lanes([(s, p) for s in seqs for p in (0, 1)])
@@ -108,7 +179,7 @@ def ext_case(rng, B, Lq, Lt, w_val=None):
     """K1 lanes as test_pallas_sw builds them: half extend a planted match
     with a few edits; w_val set: the narrowing-adversarial mix."""
     import numpy as np
-    from biscuit_tpu.config import MemOpt
+    from biscuit_tpu_torch.config import MemOpt
     opt = MemOpt()
     q = rng.integers(0, 4, (B, Lq)).astype(np.int32)
     t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
@@ -169,7 +240,7 @@ def local_case(rng, B, Lq, Lt):
     endsc breaks. Returns the wrapper's inputs as numpy, the matrices
     [3, 5, 5] (gamat, ctmat, a=4/b=2)."""
     import numpy as np
-    from biscuit_tpu.config import MemOpt
+    from biscuit_tpu_torch.config import MemOpt
     opt = MemOpt()
     q = np.full((B, Lq), 4, np.int32)
     t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
@@ -225,11 +296,12 @@ def smoke(work: str) -> int:
 
     # 2. build, one nvcc for each source, all started together
     from biscuit_tpu_torch import kernels
-    from biscuit_tpu_torch.ops import (chain_batch, seed_batch, sw_extend,
-                                       sw_global, sw_local)
+    from biscuit_tpu_torch.ops import (chain_batch, pileup_count, seed_batch,
+                                       sw_extend, sw_global, sw_local)
     t0 = time.perf_counter()
     libs = (sw_extend._lib, sw_global._lib, seed_batch._lib,
-            seed_batch._seed_lib, chain_batch._lib, sw_local._lib)
+            seed_batch._seed_lib, chain_batch._lib, sw_local._lib,
+            pileup_count._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -254,14 +326,26 @@ def smoke(work: str) -> int:
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     table = []
 
-    def row(name, source, replaces, err, ms, plain_ms, shape):
+    def row(name, source, replaces, err, ms, plain_ms, shape, n_bytes, n_ops,
+            library_ms=None, paths=("4", "4b")):
+        """One kernel of the table. n_bytes: every input read once and every
+        output written once; n_ops: the integer operations these inputs
+        need; paths: the phases whose run must launch it."""
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         table.append({"name": name, "route": "cuda",
                       "source": f"biscuit_tpu_torch/kernels/{source}",
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": err, "ms": round(ms, 4),
-                      "plain_ms": round(plain_ms, 4)})
+                      "plain_ms": round(plain_ms, 4),
+                      "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+                      "library_ms": (None if library_ms is None
+                                     else round(library_ms, 4)),
+                      "paths": list(paths)})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         say(f"[3] {name} {shape}: kernel == plain (max |d| {err}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, {n_ops} "
+            f"operations), library call {lib} [{card}]")
 
     # K1 at the engine's shapes, then the adversarial band widths
     err, ms, pms = 0, 0.0, 0.0
@@ -279,8 +363,21 @@ def smoke(work: str) -> int:
             err = max(err, compare(f"sw_extend w={w_val} zdrop={zdrop}", k(), p()))
             if w_val is None:
                 ms, pms = cuda_ms(k, 20), cuda_ms(p, 3)
+                # the cells these lanes fill before they break, counted by
+                # the plain version as it runs (its result was held to the
+                # kernel's just above); the whole band is the upper figure
+                filled = torch.zeros(q.shape[0], dtype=torch.int64, device=dev)
+                sw_extend.sw_extend_batch_plain(q, ql, t, tl, mat_b, wc, h0,
+                                                *sc, zdrop, filled=filled)
+                cells, band = int(filled.sum()), band_cells(ql, tl, wc)
+                if not 0 < cells <= band:
+                    raise AssertionError(f"sw_extend: {cells} cells filled "
+                                         f"of a band of {band}")
+                moved = nbytes(q, ql, t, tl, mats, msel, w, bonus, h0, k())
     row("sw_extend", "sw_extend.cu", "biscuit_tpu/ops/pallas_sw.py:58",
-        err, ms, pms, "B=4096 Lq=150 Lt<=300, w in {100,1,2,5,17}")
+        err, ms, pms, f"B=4096 Lq=150 Lt<=300, w in {{100,1,2,5,17}}, {cells} "
+        f"cells filled at w=100 (the whole band: {band}), longest lane "
+        f"{int(filled.max())}", moved, cells * CELL_OPS["sw_extend"])
 
     # K2: DP and traceback
     q, ql, t, tl, msel, w = (T(x) for x in glob_case(rng, 2048, 150, 160))
@@ -292,8 +389,12 @@ def smoke(work: str) -> int:
     pd = lambda: sw_global.sw_global_batch_plain(q, ql, t, tl1, mat_b, w1, *sc)
     (ks, kz), (ps, pz) = kd(), pd()
     err = compare("sw_global", (ks, kz), (ps, pz))
+    cells = band_cells(ql, tl1, w1)
     row("sw_global", "sw_global.cu", "biscuit_tpu/ops/pallas_global.py:133",
-        err, cuda_ms(kd, 20), cuda_ms(pd, 3), "B=2048 Lq=150 Lt=160")
+        err, cuda_ms(kd, 20), cuda_ms(pd, 3),
+        f"B=2048 Lq=150 Lt=160, {cells} band cells",
+        nbytes(q, ql, t, tl, mats, msel, w, ks, kz),
+        cells * CELL_OPS["sw_global"])
     kt = lambda: sw_global.global_traceback(kz, ql, tl, w)
     pt = lambda: sw_global.global_traceback_plain(kz, ql, tl, w)
     err = compare("global_traceback", kt(), pt())
@@ -314,7 +415,9 @@ def smoke(work: str) -> int:
         raise AssertionError("the overflow case did not overflow")
     row("global_traceback", "sw_global.cu",
         "biscuit_tpu/ops/pallas_global.py:242", err, cuda_ms(kt, 20),
-        cuda_ms(pt, 3), f"B=2048 (+{n_ov} overflow lanes of {B2} checked)")
+        cuda_ms(pt, 3), f"B=2048 (+{n_ov} overflow lanes of {B2} checked)",
+        # the walk reads one direction byte a step, at most qlen + tlen steps
+        int((ql + tl).sum()) + nbytes(ql, tl, w, *kt()), 4 * int((ql + tl).sum()))
 
     # K4: 2^20 random ranks on the phase-4 index
     fm = seed_batch.FMPair.from_index(idx, dev)
@@ -327,7 +430,7 @@ def smoke(work: str) -> int:
     err = compare("sa_walk", ks(), ps())
     # the other instance of the kernel: the same genome in the wide layout
     # (int64 ranks, 12-column rows), which strands of 2^31 bases and more use
-    from biscuit_tpu.index.build import build_index
+    from biscuit_tpu_torch.index.build import build_index
     os.environ["BISCUIT_TPU_WIDE_INDEX"] = "1"
     try:
         fmw = seed_batch.FMPair.from_index(build_index(fa), dev)
@@ -341,7 +444,10 @@ def smoke(work: str) -> int:
                            seed_batch.sa_batch_plain(fmw, which, ranks_w)))
     row("sa_walk", "sa_walk.cu", "biscuit_tpu/ops/seed_batch.py:1983", err,
         cuda_ms(ks, 10), cuda_ms(ps, 2),
-        "2^20 ranks, narrow index (times), wide index (equality)")
+        "2^20 ranks, narrow index (times), wide index (equality)",
+        # a floor: every rank reads at least its SA sample; the table rows
+        # its walk gathers on the way there are not counted
+        nbytes(which, ranks, ks()) + n * fm.sa_samples.element_size(), 4 * n)
     # the port's scalar walk agrees on a sample
     from biscuit_tpu_torch.ops.fm import FMNumpy
     fms = {0: FMNumpy(idx.dau), 1: FMNumpy(idx.par)}
@@ -352,7 +458,7 @@ def smoke(work: str) -> int:
 
     # K3 (K5 inside it): the phase-4 reads converted both ways, as the
     # engine seeds them, on the narrow index and on its wide twin
-    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI
+    from biscuit_tpu_torch.config import MemOpt, MEM_F_NO_MULTI
     from biscuit_tpu_torch.align.smem import collect_intv
     opt = MemOpt()
     opt.flag |= MEM_F_NO_MULTI
@@ -387,12 +493,16 @@ def smoke(work: str) -> int:
     row("smem_seed", "smem_seed.cu", "biscuit_tpu/ops/seed_batch.py:1847", err,
         cuda_ms(ks, 10), cuda_ms(ps, 1),
         f"B={B} lanes, L={lq.shape[1]}, narrow index (times), wide (equality), "
-        f"{rows.shape[0]} rows")
+        f"{rows.shape[0]} rows",
+        # a floor: every base of a lane is extended over at least once, and
+        # an extension gathers two rows of the fused table
+        nbytes(lq, ll, lp, *got) + 2 * int(ll.sum()) * fm.tab.shape[-1]
+        * fm.tab.element_size(), 40 * int(ll.sum()))
 
     # K6: the occurrence streams mem_chain_batch builds for those lanes and
     # for chimeras of thirds of three reads (lanes of three chains), caught
     # at the scan's entry; then NC=2, where lanes overflow
-    from biscuit_tpu.io.fastq import BSeq, fastq_iter, read_batch
+    from biscuit_tpu_torch.io.fastq import BSeq, fastq_iter, read_batch
     from biscuit_tpu_torch.align.chain import CHAIN_NC, mem_chain_batch
     from biscuit_tpu_torch.align.device_engine import DeviceAligner
     from biscuit_tpu_torch.align.pipeline import AlignerState
@@ -426,7 +536,75 @@ def smoke(work: str) -> int:
     row("chain_scan", "chain_scan.cu", "biscuit_tpu/ops/chain_batch.py:44",
         err, cuda_ms(kc, 20), cuda_ms(pc, 1),
         f"J={sa[0].shape[0]} B={sa[0].shape[1]} NC={CHAIN_NC} "
-        f"(+NC=2: {n_ov2} lanes flagged, equal)")
+        f"(+NC=2: {n_ov2} lanes flagged, equal)",
+        nbytes(*sa[:7], *kc()), 30 * int(sa[6].sum()))
+
+    # K9: the window count scatter-add at the shapes phase 6 gives it, a
+    # window of 100,000 sites with 3 x 10^6 data (30x of 150 bp reads in
+    # coordinate order): 32 codes with a tenth of the data invalid (the
+    # filtered counts) and 1 code over all data (the depth), for one sample
+    # and for two (somatic mode), int64 indices (as the engine's numpy arrays
+    # come) and int32. Integer counts: equal exactly, tolerance 0.
+    err = 0
+    for n_bams in (1, 2):
+        window = PLP_WINDOW * n_bams
+        for n_codes, p_invalid in ((32, 0.1), (1, 0.0)):
+            pos, code, valid = count_case(rng, PLP_WINDOW, n_bams, PLP_DATA,
+                                          p_invalid)
+            if n_codes == 1:
+                code = np.zeros_like(code)
+            for dt in (np.int64, np.int32):
+                a = (T(pos.astype(dt)), T(code.astype(dt)), T(valid))
+                kf = lambda: pileup_count.pileup_count_window(*a, window, n_codes)
+                pf = lambda: pileup_count.pileup_count_window_plain(
+                    *a, window, n_codes)
+                got = kf()
+                err = max(err, compare(f"pileup_count W={window} C={n_codes} "
+                                       f"{np.dtype(dt).name}", got, pf()))
+                if int(got.sum()) != int(valid.sum()):
+                    raise AssertionError("pileup_count lost data")
+                tag = (f"W={window} C={n_codes} {np.dtype(dt).name} "
+                       f"N={pos.size}")
+                # the one PyTorch call that computes the same counts, on the
+                # flat index made beforehand (the spill bin at the end)
+                flat = torch.where(a[2], a[0].long() * n_codes + a[1].long(),
+                                   window * n_codes)
+                lf = lambda: torch.bincount(flat, minlength=window * n_codes + 1)
+                if not torch.equal(lf()[:-1].reshape(window, n_codes).int(), got):
+                    raise AssertionError(f"{tag}: bincount != kernel")
+                # without the wrapper's read of the refused-data word
+                raw = lambda: pileup_count._launch(*a, window, n_codes)
+                times = (cuda_ms(kf, 20), cuda_ms(raw, 20), cuda_ms(pf, 5),
+                         cuda_ms(lf, 5))
+                if (n_bams, n_codes, dt) == (1, 32, np.int64):
+                    k9 = (times, tag, nbytes(*a) + 2 * window * n_codes * 4,
+                          3 * pos.size)
+                say(f"[3] pileup_count {tag}: kernel == plain == bincount; "
+                    f"wrapper {times[0]:.4f} ms, launch alone {times[1]:.4f} "
+                    f"ms, plain {times[2]:.4f} ms, bincount {times[3]:.4f} ms "
+                    f"[{card}]")
+    # an index out of range raises (never a silent clamp or drop) ...
+    for bad_pos, bad_code in ((PLP_WINDOW, 0), (-1, 0), (5, 32), (5, -1)):
+        b = (T(np.array([3, bad_pos, 7])), T(np.array([1, bad_code, 2])),
+             T(np.ones(3, bool)))
+        try:
+            pileup_count.pileup_count_window(*b, PLP_WINDOW, 32)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"pileup_count took position {bad_pos}, "
+                                 f"code {bad_code}")
+    # ... unless its `valid` is false; and no data give zero counts
+    b = (b[0], b[1], T(np.array([True, False, True])))
+    if int(pileup_count.pileup_count_window(*b, PLP_WINDOW, 32).sum()) != 2:
+        raise AssertionError("pileup_count counted an invalid datum")
+    e = (T(np.zeros(0, np.int64)), T(np.zeros(0, np.int64)), T(np.zeros(0, bool)))
+    if int(pileup_count.pileup_count_window(*e, PLP_WINDOW, 32).sum()) != 0:
+        raise AssertionError("pileup_count of no data is not zero")
+    (ms, _raw, pms, lms), tag, moved, ops = k9
+    row("pileup_count", "pileup_count.cu", "biscuit_tpu/parallel/mesh.py:118",
+        err, ms, pms, tag + " (+ 2 samples, 1 code, int32, refusals: equal)",
+        moved, ops, library_ms=lms, paths=("6",))
 
     # the seeder and the SA walk on a 50 Mbp index, whose tables (about
     # 100 MB each strand pair) are twice the L2; the plain versions on
@@ -454,8 +632,8 @@ def smoke(work: str) -> int:
     # 4. the SE align slice end to end, through the CLI entry point
     from biscuit_tpu_torch import cli
     from biscuit_tpu_torch.align import device_engine
-    from biscuit_tpu.config import MemOpt, MEM_F_NO_MULTI, MEM_F_PE
-    from biscuit_tpu.index.fmindex import BisIndex
+    from biscuit_tpu_torch.config import MemOpt, MEM_F_NO_MULTI, MEM_F_PE
+    from biscuit_tpu_torch.index.fmindex import BisIndex
     from biscuit_tpu_torch.align.pipeline import AlignerState, process_seqs
     from torch_testdata import damage_mates, load_pairs
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
@@ -533,7 +711,7 @@ def smoke(work: str) -> int:
     say(f"[4] align wall {wall:.2f} s = {N_READS / wall:.1f} reads/s "
         f"(engine stages {rep['total_s']:.2f} s) [{card}]")
     for r in table:
-        if launches.get(r["name"], 0) < 1:
+        if "4" in r["paths"] and launches.get(r["name"], 0) < 1:
             raise AssertionError(f"{r['name']} never launched on the SE path")
 
     # 4b. the PE align slice end to end. The generator draws the genome
@@ -634,17 +812,154 @@ def smoke(work: str) -> int:
         f"Lq={fwd[0].shape[1]} Lt={fwd[2].shape[1]}, {int(cells.sum())} "
         f"cells, longest lane {int(cells.max())} "
         f"({ms * 1e6 / max(int(cells.max()), 1):.1f} ns a cell); "
-        f"+ {n_seeded} seeded lanes ({n_u8} u8, {n_sat} saturated)")
+        f"+ {n_seeded} seeded lanes ({n_u8} u8, {n_sat} saturated)",
+        nbytes(*(x for x in fwd if torch.is_tensor(x)), *kf().values()),
+        int(cells.sum()) * CELL_OPS["sw_local"], paths=("4b",))
     for r in table:
         n_se, n_pe = launches.get(r["name"], 0), plaunch.get(r["name"], 0)
-        r["launches"] = n_se + n_pe
-        if n_pe < 1:
-            raise AssertionError(f"{r['name']} never launched on the PE path")
+        if "4b" in r["paths"]:
+            r["launches"] = n_se + n_pe
+            if n_pe < 1:
+                raise AssertionError(f"{r['name']} never launched on the PE path")
 
-    # 5. jax stayed out
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    say("[5] 'jax' not in sys.modules")
+    # 6. the pileup slice end to end: align on the card, sort, pileup on the
+    # card through the CLI, against the same CLI on the CPU
+    from biscuit_tpu_torch.pileup import engine as plp_engine
+    t0 = time.perf_counter()
+    pdir = os.path.join(work, "plp")
+    gfa, gfq, _ = make_dataset(pdir, genome_size=PLP_GENOME, n_reads=PLP_READS,
+                               read_len=READ_LEN, seed=SEED + 1, snp_rate=0.005)
+    say(f"[6] data: {PLP_GENOME} bp genome, {PLP_READS} x {READ_LEN} bp reads "
+        f"({PLP_READS * READ_LEN / PLP_GENOME:.0f}x), index built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(gsam, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(["align", gfa, gfq])
+    torch.cuda.synchronize()
+    t_align = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"align exited {rc}")
+    t0 = time.perf_counter()
+    if cli.main(["sort", "-o", gbam, gsam]) != 0:
+        raise AssertionError("sort failed")
+    say(f"[6] align {t_align:.1f} s = {PLP_READS / t_align:.1f} reads/s on the "
+        f"card; sort to BAM {time.perf_counter() - t0:.1f} s [{card}]")
+
+    vcf_gpu, vcf_cpu = (os.path.join(pdir, n) for n in ("gpu.vcf", "cpu.vcf"))
+
+    def pileup():
+        """The CLI on the card, every count set to 0 just before it and read
+        just after: (wall s, launches, stages)."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        plp_engine.reset_stages()
+        t0 = time.perf_counter()
+        rc = cli.main(["pileup", "-o", vcf_gpu, gfa, gbam])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"pileup exited {rc}")
+        return wall, dict(kernels.LAUNCHES), dict(plp_engine.STAGES)
+
+    t_plp, klaunch, st = pileup()
+    # the same CLI in a process of its own on the CPU: the plain counts
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli", "pileup",
+                        "-o", vcf_cpu, gfa, gbam], cwd=REPO,
+                       env=dict(os.environ, BISCUIT_TPU_TORCH_DEVICE="cpu"),
+                       capture_output=True, text=True)
+    t_cpu = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"pileup on the CPU exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+
+    def vcf_lines(path):
+        with open(path) as f:
+            return [ln for ln in f if not ln.startswith("##program")]
+
+    got, want = vcf_lines(vcf_gpu), vcf_lines(vcf_cpu)
+    if got != want:
+        raise AssertionError("the card's VCF differs from the CPU's")
+    with open(vcf_gpu + "_meth_average.tsv") as f, \
+            open(vcf_cpu + "_meth_average.tsv") as g:
+        if f.read() != g.read():
+            raise AssertionError("_meth_average.tsv differs")
+    sites = [ln.split("\t") for ln in got if not ln.startswith("#")]
+    n_meth = sum(1 for f in sites if "CV:BT" in f[8])
+    n_alt = sum(1 for f in sites if f[4] != ".")
+    if any(len(f) != 10 or not f[1].isdigit() for f in sites):
+        raise AssertionError("malformed VCF record")
+    if st["sites"] != len(sites) or n_meth < PLP_GENOME // 10 or n_alt < 100:
+        raise AssertionError(f"{len(sites)} VCF records ({st['sites']} "
+                             f"counted), {n_meth} with CV:BT, {n_alt} with ALT")
+    # two chromosomes of PLP_GENOME / 2, windows [1 + k * step, ...) below
+    # the chromosome's length
+    n_windows = 2 * -(-(PLP_GENOME // 2 - 1) // PLP_WINDOW)
+    if st["windows"] != n_windows or \
+            klaunch.get("pileup_count", 0) != 2 * st["windows"]:
+        raise AssertionError(f"{st['windows']} windows with data (expected "
+                             f"{n_windows}), launches {klaunch}")
+    if st["data"] < 0.8 * PLP_READS * READ_LEN:
+        raise AssertionError(f"only {st['data']} data reached K9")
+    say(f"[6] pileup: {len(sites)} VCF records ({n_meth} with CV:BT, {n_alt} "
+        f"with an ALT allele), byte-identical without ##program to the CPU "
+        f"run's ({t_cpu:.1f} s in its own process, 3 window workers); "
+        f"_meth_average.tsv identical")
+    say(f"[6] stages (s): open {st['open']:.3f}, read decode "
+        f"{st['decode']:.3f}, K9 with its copies "
+        f"{st['count']:.3f}, emit {st['emit']:.3f}; {st['windows']} windows, "
+        f"{st['data']} data = {st['data'] // st['windows']} a window")
+    say(f"[6] launches: {json.dumps(klaunch)}")
+    say(f"[6] pileup wall {t_plp:.2f} s = {len(sites) / t_plp:.1f} sites/s, "
+        f"{PLP_GENOME / t_plp:.1f} bp/s [{card}]")
+    for r in table:
+        if "6" in r["paths"]:
+            r["launches"] = klaunch.get(r["name"], 0)
+            if r["launches"] < 1:
+                raise AssertionError(f"{r['name']} never launched on the "
+                                     "pileup path")
+    # where that time goes on the card: the same run once more, then under
+    # torch.profiler for the device time of every kernel and copy
+    from torch.profiler import ProfilerActivity, profile
+
+    def say_run(tag, wall, st):
+        st = {k: round(v, 3) if isinstance(v, float) else v
+              for k, v in st.items()}
+        say(f"[6] {tag}: wall {wall:.3f} s, {st['sites'] / wall:.1f} sites/s; "
+            f"stages {json.dumps(st)} [{card}]")
+
+    wall, _launches, st2 = pileup()
+    say_run("second run", wall, st2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _launches, st2 = pileup()
+    say_run("profiled run", wall, st2)
+    # events of the card itself (kernels and copies); the host-side ops
+    # that launched them carry the same device time a second time
+    on_card = torch.autograd.DeviceType.CUDA
+    by_name = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == on_card
+                      and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(us for us, _n, _k in by_name) / 1e3
+    if not any("pileup_count" in key for _us, _n, key in by_name):
+        raise AssertionError("torch.profiler saw no pileup_count kernel")
+    say(f"[6] device busy {busy_ms:.3f} ms of {wall * 1e3:.1f} ms wall: idle "
+        f"share {1 - busy_ms / (wall * 1e3):.5f} (kernels and copies of one "
+        f"stream, summed) [{card}]")
+    for us, n_ev, key in by_name[:8]:
+        say(f"[6]   {us / 1e3:10.3f} ms  {n_ev:5d} x  {key[:90]}")
+
+    # 5. neither jax nor the JAX package was imported
+    theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")
+              or m.startswith(("jax.", "biscuit_tpu."))]
+    if theirs:
+        raise AssertionError(f"imported: {theirs}")
+    say("[5] no module of jax or biscuit_tpu in sys.modules")
+    for r in table:
+        del r["paths"]
 
     say(json.dumps({"kernels": table}))
     say(card)

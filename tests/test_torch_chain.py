@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.align import bns as bnsmod
 from biscuit_tpu.align.chain import mem_chain_batch as jax_mem_chain_batch
-from biscuit_tpu.config import MemOpt
+from biscuit_tpu.config import MemOpt as JaxMemOpt
+from biscuit_tpu_torch.align import bns as bnsmod
+from biscuit_tpu_torch.config import MemOpt
 from biscuit_tpu.ops.chain_batch import chain_scan_batch as jax_scan
 from biscuit_tpu_torch.align import pipeline as tpipe
 from biscuit_tpu_torch.align.chain import (CHAIN_JMAX, CHAIN_KMAX, getbss,
@@ -21,7 +22,7 @@ from biscuit_tpu_torch.align.chain import (CHAIN_JMAX, CHAIN_KMAX, getbss,
 from biscuit_tpu_torch.align.device_engine import DeviceAligner
 from biscuit_tpu_torch.ops import chain_batch as tcb
 
-from torch_testdata import load_reads, make_dataset
+from torch_testdata import jax_index, load_reads, make_dataset
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -128,7 +129,7 @@ def test_mem_chain_batch_matches_jax_and_host(lanes):
     opt = MemOpt()
     jobs = jobs + _synthetic_jobs(st.idx)
     got = mem_chain_batch(opt, st.idx, jobs, "cpu")
-    want = jax_mem_chain_batch(opt, st.idx, jobs)
+    want = jax_mem_chain_batch(JaxMemOpt(), jax_index(st.idx), jobs)
     assert [g is None for g in got] == [w is None for w in want]
     assert [g is None for g in got[-4:]] == [True, True, True, False]
     assert got[-1] == []

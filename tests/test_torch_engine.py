@@ -5,30 +5,50 @@ write SAM byte-identical to the JAX device engine and to the JAX host
 engine, SE and PE (mate rescue on, and off under -S), with seeding, the
 chain scan and mate rescue on its batched path; its `align` CLI must write
 what it writes in-process, for SE, two FASTQs and interleaved mates (-p);
-it must never import jax; and its copies of the host align modules must
-stay their sources' code with only the imports changed (and, in chain.py,
-mem_chain_batch's call into the port's chain scan).
+it must never import jax or any module of the JAX package; its `index`
+must write the JAX package's files; and its copies of the JAX package's
+host modules must stay their sources' code with only the imports changed
+(and what each entry of COPIES leaves out on purpose).
+
+Each side gets inputs of its own classes: the JAX engines the JAX
+package's MemOpt, BisIndex and BSeq, the port its own, with the port's
+index made by bisindex_from_numpy from the arrays of the JAX package's, so
+that both align against the very same index.
 """
 import ast
+import collections
 import os
 import subprocess
 import sys
+import zipfile
 
 import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.config import (MemOpt, MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
-                                MEM_F_PE)
+from biscuit_tpu import config as jconfig
+from biscuit_tpu.index.build import build_index as jax_build_index
+from biscuit_tpu.index.fmindex import BisIndex as JaxBisIndex
 from biscuit_tpu.align.pipeline import AlignerState, process_seqs
 from biscuit_tpu.align.device_engine import process_seqs_device as jax_device
+from biscuit_tpu_torch import config as tconfig
 from biscuit_tpu_torch import kernels
 from biscuit_tpu_torch.align import pipeline as tpipe
 from biscuit_tpu_torch.align.device_engine import (process_seqs_device,
                                                    reset_stages, stage_report)
+from biscuit_tpu_torch.index.fmindex import BisIndex, bisindex_from_numpy
 
-from torch_testdata import (REPO, damage_mates, load_pairs, load_reads,
-                            make_dataset)
+from torch_testdata import (REPO, damage_mates, index_fields, load_pairs,
+                            load_reads, make_dataset, port_index)
+
+# one index twice: the JAX package's object, and the port's over its arrays
+Both = collections.namedtuple("Both", "jax port")
+
+
+def _both_indexes(fa):
+    """The index of `fa`, built and written by the JAX package."""
+    jidx = jax_build_index(fa, prefix=fa)
+    return Both(jidx, port_index(jidx))
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -42,15 +62,16 @@ def data(tmp_path_factory):
     """60 kbp genome, 2 chroms, SE 100 bp reads with SNPs, and an indel in
     every other of each 4 reads so the global alignment path has work."""
     d = tmp_path_factory.mktemp("teng")
-    fa, fq, idx = make_dataset(d, genome_size=60000, n_reads=N_READS,
-                               n_chroms=2, seed=11, snp_rate=0.01,
-                               indel_every=4)
-    return fa, fq, idx
+    fa, fq, _ = make_dataset(d, genome_size=60000, n_reads=N_READS,
+                             n_chroms=2, seed=11, snp_rate=0.01,
+                             indel_every=4, index=False)
+    return fa, fq, _both_indexes(fa)
 
 
-def _opt():
-    opt = MemOpt()
-    opt.flag |= MEM_F_NO_MULTI
+def _opt(cfg=tconfig):
+    """Options of the port's MemOpt, or with cfg=jconfig the JAX package's."""
+    opt = cfg.MemOpt()
+    opt.flag |= cfg.MEM_F_NO_MULTI
     return opt
 
 
@@ -60,18 +81,19 @@ def port_sam(data):
     seqs = load_reads(fq, N_READS)
     kernels.reset_launches()
     reset_stages()
-    process_seqs_device(_opt(), tpipe.AlignerState(idx), seqs, 0, device="cpu")
+    process_seqs_device(_opt(), tpipe.AlignerState(idx.port), seqs, 0,
+                        device="cpu")
     return [s.sam for s in seqs], stage_report(), dict(kernels.LAUNCHES)
 
 
 def test_se_sam_matches_jax_device_and_host(data, port_sam):
     _fa, fq, idx = data
     got, report, launches = port_sam
-    st = AlignerState(idx)
-    dev_seqs = load_reads(fq, N_READS)
-    jax_device(_opt(), st, dev_seqs, 0)
-    host_seqs = load_reads(fq, N_READS)
-    process_seqs(_opt(), st, host_seqs, 0)
+    st = AlignerState(idx.jax)
+    dev_seqs = load_reads(fq, N_READS, jax_pkg=True)
+    jax_device(_opt(jconfig), st, dev_seqs, 0)
+    host_seqs = load_reads(fq, N_READS, jax_pkg=True)
+    process_seqs(_opt(jconfig), st, host_seqs, 0)
     for g, v, h in zip(got, dev_seqs, host_seqs):
         assert g == v.sam, f"port: {g}\njax device: {v.sam}"
         assert g == h.sam, f"port: {g}\njax host: {h.sam}"
@@ -90,13 +112,12 @@ def test_se_sam_matches_jax_device_and_host(data, port_sam):
 def test_port_host_engine_matches_jax_host(data, port_sam):
     _fa, fq, idx = data
     seqs = load_reads(fq, N_READS)
-    tpipe.process_seqs(_opt(), tpipe.AlignerState(idx), seqs, 0)
+    tpipe.process_seqs(_opt(), tpipe.AlignerState(idx.port), seqs, 0)
     assert [s.sam for s in seqs] == port_sam[0]
 
 
 def _env():
     env = dict(os.environ)
-    env.pop("BISCUIT_TPU_PLATFORM", None)  # conftest sets it; it imports jax
     env["BISCUIT_TPU_TORCH_DEVICE"] = "cpu"
     env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
     return env
@@ -137,13 +158,16 @@ def test_port_never_imports_jax(data, pe_data):
         "                if ln[:1] != '@']\n"
         f"rc, se = run(['-1', {read!r}, {fa!r}])\n"
         f"rc2, pe = run(['-1', {mates[0]!r}, '-2', {mates[1]!r}, {pfa!r}])\n"
+        "theirs = [m for m in sys.modules if m == 'jax' or m == 'biscuit_tpu'\n"
+        "          or m.startswith(('jax.', 'biscuit_tpu.'))]\n"
         "print(rc, se[0][2], rc2, len(pe), *(int(f[1]) for f in pe),\n"
-        "      pe[0][2], 'jax' in sys.modules)\n")
+        "      pe[0][2], not theirs)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    rc, chrom, rc2, n_pe, flag1, flag2, pchrom, has_jax = r.stdout.split()
-    assert rc == "0" and chrom.startswith("chr") and has_jax == "False"
+    rc, chrom, rc2, n_pe, flag1, flag2, pchrom, clean = r.stdout.split()
+    # neither jax nor biscuit_tpu (nor a submodule of either) was imported
+    assert rc == "0" and chrom.startswith("chr") and clean == "True"
     # one record per mate, both paired (0x1) and mapped, as read 1 and 2
     assert rc2 == "0" and n_pe == "2" and pchrom.startswith("chr")
     for flag, mate in ((int(flag1), 0x40), (int(flag2), 0x80)):
@@ -164,15 +188,16 @@ def pe_data(tmp_path_factory):
     mate 2 damaged at every 9th base, so that it has no seed and only mate
     rescue can place it (as tests/test_device_engine.py:94-99)."""
     d = tmp_path_factory.mktemp("tpe")
-    fa, (fq1, fq2), idx = make_dataset(d, genome_size=60000, n_reads=N_PAIRS,
-                                       seed=23, snp_rate=0.02, pe=True)
+    fa, (fq1, fq2), _ = make_dataset(d, genome_size=60000, n_reads=N_PAIRS,
+                                     seed=23, snp_rate=0.02, pe=True,
+                                     index=False)
     damage_mates(fq2, DAMAGE_EVERY)
-    return fa, (fq1, fq2), idx
+    return fa, (fq1, fq2), _both_indexes(fa)
 
 
-def _pe_opt(rescue=True):
-    opt = _opt()
-    opt.flag |= MEM_F_PE | (0 if rescue else MEM_F_NO_RESCUE)
+def _pe_opt(rescue=True, cfg=tconfig):
+    opt = _opt(cfg)
+    opt.flag |= cfg.MEM_F_PE | (0 if rescue else cfg.MEM_F_NO_RESCUE)
     return opt
 
 
@@ -186,8 +211,8 @@ def port_pe_sam(pe_data):
         seqs = load_pairs(*fqs)
         kernels.reset_launches()
         reset_stages()
-        process_seqs_device(_pe_opt(rescue), tpipe.AlignerState(idx), seqs,
-                            0, device="cpu")
+        process_seqs_device(_pe_opt(rescue), tpipe.AlignerState(idx.port),
+                            seqs, 0, device="cpu")
         out[rescue] = ([s.sam for s in seqs], stage_report(),
                        dict(kernels.LAUNCHES))
     return out
@@ -208,11 +233,11 @@ def _damaged_mapped(sams):
 def test_pe_sam_matches_jax_device_and_host(pe_data, port_pe_sam, rescue):
     _fa, fqs, idx = pe_data
     got, report, launches = port_pe_sam[rescue]
-    st = AlignerState(idx)
-    dev_seqs = load_pairs(*fqs)
-    jax_device(_pe_opt(rescue), st, dev_seqs, 0)
-    host_seqs = load_pairs(*fqs)
-    process_seqs(_pe_opt(rescue), st, host_seqs, 0)
+    st = AlignerState(idx.jax)
+    dev_seqs = load_pairs(*fqs, jax_pkg=True)
+    jax_device(_pe_opt(rescue, jconfig), st, dev_seqs, 0)
+    host_seqs = load_pairs(*fqs, jax_pkg=True)
+    process_seqs(_pe_opt(rescue, jconfig), st, host_seqs, 0)
     assert len(got) == 2 * N_PAIRS
     for g, v, h in zip(got, dev_seqs, host_seqs):
         assert g == v.sam, f"port: {g}\njax device: {v.sam}"
@@ -239,7 +264,8 @@ def test_matesw_batch_matches_sequential(pe_data):
     from biscuit_tpu_torch.align.device_engine import DeviceAligner
     from biscuit_tpu_torch.align.pair import pestat
     from biscuit_tpu_torch.align.region import matesw, matesw_batch
-    _fa, fqs, idx = pe_data
+    _fa, fqs, both = pe_data
+    idx = both.port
     st = tpipe.AlignerState(idx)
     seqs = load_pairs(*fqs)
     opt = _pe_opt()
@@ -307,7 +333,7 @@ def test_traceback_overflow_lanes_realigned_on_host(data):
     easy = rng.integers(0, 4, 100).astype(np.uint8)
     reqs.append(("easy", easy, easy.copy(), 5, 0))
     reset_stages()
-    got = DeviceAligner(tpipe.AlignerState(data[2]), "cpu").sw_global_batch(
+    got = DeviceAligner(tpipe.AlignerState(data[2].port), "cpu").sw_global_batch(
         opt, reqs)
     assert stage_report()["traceback_overflow_lanes"] == 4
     for key, q, r, w, parent in reqs:
@@ -337,16 +363,216 @@ def _code(path, drop=()):
         if isinstance(node, ast.Assign) and any(
                 getattr(t, "id", None) in drop for t in node.targets):
             continue
+        if isinstance(node, ast.AnnAssign) and node.target.id in drop:
+            continue
         out.append(ast.dump(node))
     return out
 
 
-@pytest.mark.parametrize("name", ["trace", "smem", "chain", "region", "sam",
-                                  "pair", "pipeline"])
+# every module the port copied from the JAX package: id -> (path inside
+# either package, top-level names left out of the comparison). The names
+# left out are what the copy deliberately changes or does not carry.
+_ALIGN = {n: (f"align/{n}.py", ()) for n in ("trace", "smem", "region", "sam",
+                                             "pair", "pipeline")}
+COPIES = {
+    **_ALIGN,
+    # its call into the chain scan is the port's own
+    "chain": ("align/chain.py", ("mem_chain_batch",)),
+    "config": ("config.py", ()),
+    "utils/rng": ("utils/rng.py", ()),
+    "utils/ksort": ("utils/ksort.py", ()),
+    "index/fasta": ("index/fasta.py", ()),
+    # bisindex_from_numpy is the port's addition
+    "index/fmindex": ("index/fmindex.py", ("bisindex_from_numpy",)),
+    "index/build": ("index/build.py", ()),
+    # the loader of sais.cpp and bwt_merge.cpp only: no PGO or
+    # sanitizer build, and _declare holds the two sources' functions
+    # (test_native_declare_is_a_prefix_of_the_source)
+    "native": ("native/__init__.py", (
+        "_SAN", "_SO", "_PGO_DIR", "_PGO_STAMP", "_PGO_SO_MARK", "_src_stamp",
+        "_has_gcda", "_pgo_profile_fresh", "_build", "train_pgo", "_declare")),
+    "io/fastq": ("io/fastq.py", ()),
+    "io/bgzf": ("io/bgzf.py", ()),
+    "io/bai": ("io/bai.py", ()),
+    "io/sambam": ("io/sambam.py", ()),
+    "ops/sw": ("ops/sw.py", ()),
+    "align/bns": ("align/bns.py", ()),
+    "align/io_helpers": ("align/io_helpers.py", ()),
+    "pileup/stats": ("pileup/stats.py", ()),
+    "pileup/common": ("pileup/common.py", ()),
+    # the counts come from the port's scatter-add on a torch device
+    # (test_pileup_window_fast_differs_only_in_its_counts): no mode switch,
+    # no sharded counts, no C++ window engine; windows run in-process on a
+    # CUDA device; stage timers
+    "pileup/engine": ("pileup/engine.py", (
+        "pileup_window", "_pileup_window_fast", "_device_counts",
+        "_mesh_counts", "_MESH_FNS", "_pool_window1", "run_windows_pooled",
+        "_window1", "run_windows", "STAGES", "_COUNT_SPAN", "reset_stages")),
+}
+
+
+@pytest.mark.parametrize("name", list(COPIES))
 def test_copied_module_matches_source(name):
-    drop = ()
-    if name == "chain":  # its call into the chain scan is the port's own
-        drop = ("mem_chain_batch",)
-    src = os.path.join(REPO, "biscuit_tpu", "align", name + ".py")
-    dst = os.path.join(REPO, "biscuit_tpu_torch", "align", name + ".py")
+    rel, drop = COPIES[name]
+    src = os.path.join(REPO, "biscuit_tpu", rel)
+    dst = os.path.join(REPO, "biscuit_tpu_torch", rel)
     assert _code(dst, drop) == _code(src, drop)
+
+
+@pytest.mark.parametrize("name", ["sais.cpp", "bwt_merge.cpp"])
+def test_copied_native_source_matches(name):
+    """The C++ sources of the index construction are their sources' code:
+    every line that is not a // comment is the same."""
+    def code(pkg):
+        with open(os.path.join(REPO, pkg, "native", name)) as f:
+            return [ln for ln in f if not ln.lstrip().startswith("//")]
+    assert code("biscuit_tpu_torch") == code("biscuit_tpu")
+    assert len(code("biscuit_tpu")) > 100
+
+
+def _function(rel, pkg, name):
+    """The FunctionDef `name` at the top level of <pkg>/<rel>, without its
+    docstring."""
+    with open(os.path.join(REPO, pkg, rel)) as f:
+        tree = ast.parse(f.read())
+    fn, = (n for n in tree.body
+           if isinstance(n, ast.FunctionDef) and n.name == name)
+    if isinstance(fn.body[0], ast.Expr) and isinstance(
+            fn.body[0].value, ast.Constant):
+        fn.body = fn.body[1:]
+    return fn
+
+
+def test_native_declare_is_a_prefix_of_the_source():
+    """The port's _declare is the source's up to the last function of
+    sais.cpp and bwt_merge.cpp."""
+    mine = _function("native/__init__.py", "biscuit_tpu_torch", "_declare").body
+    theirs = _function("native/__init__.py", "biscuit_tpu", "_declare").body
+    assert len(mine) >= 10
+    assert [ast.dump(n) for n in mine] == \
+        [ast.dump(n) for n in theirs[:len(mine)]]
+
+
+def test_pileup_window_fast_differs_only_in_its_counts():
+    """_pileup_window_fast is the source's apart from its `device` argument
+    and the count matrices: where the source switches on BISCUIT_TPU_PILEUP
+    (an assignment and an if), the port has one call of _device_counts."""
+    mine = _function("pileup/engine.py", "biscuit_tpu_torch",
+                     "_pileup_window_fast")
+    theirs = _function("pileup/engine.py", "biscuit_tpu", "_pileup_window_fast")
+    assert [a.arg for a in mine.args.args] == \
+        [a.arg for a in theirs.args.args] + ["device"]
+    is_counts = lambda n: "_device_counts" in ast.dump(n) \
+        or "_mode" in ast.dump(n)
+    cut_mine = [ast.dump(n) for n in mine.body if not is_counts(n)]
+    cut_theirs = [ast.dump(n) for n in theirs.body if not is_counts(n)]
+    assert len(mine.body) - len(cut_mine) == 1
+    assert len(theirs.body) - len(cut_theirs) == 2
+    assert cut_mine == cut_theirs and len(cut_mine) >= 30
+
+
+@pytest.mark.parametrize("name", ["main_index", "main_sort", "main_bamindex"])
+def test_cli_function_matches_source(name):
+    assert ast.dump(_function("cli.py", "biscuit_tpu_torch", name)) == \
+        ast.dump(_function("cli.py", "biscuit_tpu", name))
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "biscuit_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_has_no_import_of_jax_or_the_jax_package():
+    """No .py of the port, and not chip_smoke.py, has an import statement of
+    jax or biscuit_tpu at any depth of its code."""
+    banned = ("jax", "biscuit_tpu")
+    hits = []
+    files = _port_sources()
+    assert len(files) > 40
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            hits += [f"{os.path.relpath(path, REPO)}:{node.lineno}: {n}"
+                     for n in names if n.split(".")[0] in banned]
+    assert not hits, hits
+
+
+# ---------------------------------------------------------------------------
+# the index: the same files from either package, and across packages
+# ---------------------------------------------------------------------------
+
+def _index_files(prefix):
+    """(the .json bytes, {member: bytes} of the .npz). np.savez stamps each
+    zip member with the time of writing, so the members are compared, not
+    the container."""
+    with open(prefix + ".btidx.json", "rb") as f:
+        meta = f.read()
+    with zipfile.ZipFile(prefix + ".btidx.npz") as z:
+        return meta, {n: z.read(n) for n in z.namelist()}
+
+
+def _same_index(a, b):
+    fa, fb = index_fields(a), index_fields(b)
+    for tag in ("par", "dau"):
+        for k, v in fa[tag].items():
+            w = fb[tag][k]
+            assert np.array_equal(v, w) and np.asarray(v).dtype == \
+                np.asarray(w).dtype, (tag, k)
+    assert np.array_equal(fa["pac"], fb["pac"]) and fa["l_pac"] == fb["l_pac"]
+    assert fa["anns"] == fb["anns"] and fa["ambs"] == fb["ambs"]
+
+
+def test_index_cli_writes_the_jax_packages_files(data, tmp_path):
+    """`index` of both CLIs on copies of one FASTA: the same files, and each
+    package loads the other's."""
+    fa, _fq, idx = data
+    prefixes = {}
+    for pkg in ("biscuit_tpu_torch", "biscuit_tpu"):
+        mine = str(tmp_path / f"{pkg}.fa")
+        with open(fa) as f, open(mine, "w") as g:
+            g.write(f.read())
+        r = subprocess.run([sys.executable, "-m", pkg + ".cli", "index", mine],
+                           cwd=REPO, env=_env(), capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        prefixes[pkg] = mine
+    assert _index_files(prefixes["biscuit_tpu_torch"]) == \
+        _index_files(prefixes["biscuit_tpu"])
+    theirs_by_port = BisIndex.load(prefixes["biscuit_tpu"])
+    ours_by_jax = JaxBisIndex.load(prefixes["biscuit_tpu_torch"])
+    assert type(theirs_by_port) is BisIndex
+    assert type(ours_by_jax) is JaxBisIndex
+    _same_index(theirs_by_port, idx.jax)
+    _same_index(ours_by_jax, idx.jax)
+
+
+def test_bisindex_from_numpy_carries_every_field(data):
+    _fa, _fq, idx = data
+    assert type(idx.port) is BisIndex and type(idx.jax) is JaxBisIndex
+    assert type(idx.port.par) is not type(idx.jax.par)
+    assert all(type(a) is not type(b)
+               for a, b in zip(idx.port.anns, idx.jax.anns))
+    _same_index(idx.port, idx.jax)
+    # plain arrays in, nothing of the giver's classes kept
+    again = bisindex_from_numpy(**index_fields(idx.port))
+    _same_index(again, idx.jax)
+
+
+@pytest.mark.parametrize("name", ["qc", "epiread", "vcf2bed", "nonsense"])
+def test_cli_answers_other_subcommands_with_not_ported(name):
+    from biscuit_tpu_torch import cli
+    assert name not in cli.SUBCOMMANDS
+    r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli", name],
+                       cwd=REPO, env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 1 and r.stdout == ""
+    assert f"[biscuit_tpu_torch] '{name}' is not ported yet" in r.stderr

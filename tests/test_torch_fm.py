@@ -10,14 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.index.build import build_index
+from biscuit_tpu_torch.index.build import build_index
 from biscuit_tpu.ops import seed_batch as jsb
 from biscuit_tpu.ops.fm import FMNumpy as JaxFMNumpy
 from biscuit_tpu_torch import kernels
 from biscuit_tpu_torch.ops import seed_batch as tsb
 from biscuit_tpu_torch.ops.fm import FMNumpy
 
-from torch_testdata import make_dataset
+from torch_testdata import jax_index, make_dataset
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -43,7 +43,7 @@ def _jax_arrays(jfm):
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 def test_fmpair_from_index_matches_jax(indexes, layout):
     idx = indexes[layout]
-    jfm = jsb.FMPair.from_index(idx)
+    jfm = jsb.FMPair.from_index(jax_index(idx))
     tfm = tsb.FMPair.from_index(idx, "cpu")
     tab, L2, prim, seq_len, sa = _jax_arrays(jfm)
     assert tfm.wide == jfm.wide == (layout == "wide")
@@ -65,7 +65,7 @@ def test_fmpair_from_index_matches_jax(indexes, layout):
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 def test_sa_batch_plain_matches_jax(indexes, layout):
     idx = indexes[layout]
-    jfm = jsb.FMPair.from_index(idx)
+    jfm = jsb.FMPair.from_index(jax_index(idx))
     tfm = tsb.FMPair.from_index(idx, "cpu")
     n = int(idx.dau.seq_len)
     rng = np.random.default_rng(5 if layout == "narrow" else 6)

@@ -14,14 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.config import MEM_F_SELF_OVLP, MemOpt
-from biscuit_tpu.index.build import build_index
+from biscuit_tpu.config import MemOpt as JaxMemOpt
+from biscuit_tpu_torch.config import MEM_F_SELF_OVLP, MemOpt
+from biscuit_tpu_torch.index.build import build_index
 from biscuit_tpu.ops import seed_batch as jsb
 from biscuit_tpu_torch.align.smem import collect_intv
 from biscuit_tpu_torch.ops import seed_batch as tsb
 from biscuit_tpu_torch.ops.fm import FMNumpy
 
-from torch_testdata import load_reads, make_dataset
+from torch_testdata import jax_index, load_reads, make_dataset
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -164,7 +165,7 @@ def _ranks(rng, idx, n):
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 def test_occ4_sel_plain_matches_jax(data, layout):
     idx = data[layout][0]
-    jfm = jsb.FMPair.from_index(idx)
+    jfm = jsb.FMPair.from_index(jax_index(idx))
     tfm = tsb.FMPair.from_index(idx, "cpu")
     rng = np.random.default_rng(1)
     k = _ranks(rng, idx, 3000)
@@ -188,7 +189,7 @@ def test_extend_sel_plain_matches_jax(data, layout):
     """Random bi-intervals, with some straddling either primary row (the
     `crosses` term) and some empty or reaching seq_len."""
     idx = data[layout][0]
-    jfm = jsb.FMPair.from_index(idx)
+    jfm = jsb.FMPair.from_index(jax_index(idx))
     tfm = tsb.FMPair.from_index(idx, "cpu")
     L = int(idx.dau.seq_len)
     rng = np.random.default_rng(2)
@@ -221,8 +222,8 @@ def test_collect_intv_flat_plain_matches_jax_and_host(data, layout):
     idx, (q, lens, par) = data[layout]
     opt = MemOpt()
     lane_of, rows, ov = _plain(data, layout)
-    jfm = jsb.FMPair.from_index(idx)
-    jl, jr, jov = jsb.collect_intv_flat_sm(jfm, q, lens, par, opt)
+    jfm = jsb.FMPair.from_index(jax_index(idx))
+    jl, jr, jov = jsb.collect_intv_flat_sm(jfm, q, lens, par, JaxMemOpt())
     assert not ov.any() and not jov.any()
     assert rows.dtype == (torch.int64 if jfm.wide else torch.int32)
     np.testing.assert_array_equal(lane_of.numpy(), jl)

@@ -93,3 +93,43 @@ def test_sw_extend_narrowing_adversarial(w_val):
         if zdrop == opt.zdrop:
             np.testing.assert_array_equal(
                 got, np.asarray(sw_extend_batch_pallas(*jargs, interpret=True)))
+
+
+def test_sw_extend_plain_counts_the_cells_it_fills():
+    """`filled` receives the cells of the rows a lane runs before it breaks:
+    by hand on two lanes, then on random lanes each alone and in a batch."""
+    from biscuit_tpu_torch.ops.sw_extend import band_clamp, sw_extend_batch_plain
+    opt = MemOpt()
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    T = torch.from_numpy
+
+    def run(arrs, zdrop, count=True):
+        query, qlens, target, tlens, mats, matsel, w, bonus, h0 = map(T, arrs)
+        filled = torch.zeros(len(qlens), dtype=torch.int64) if count else None
+        out = sw_extend_batch_plain(
+            query, qlens, target, tlens, mats[matsel.long()].reshape(-1, 25),
+            band_clamp(qlens, w, bonus, mats, *sc), h0, *sc, zdrop, filled)
+        return out, filled
+
+    # the clamp narrows the band to w = 3 for a query of 8. Lane 0, an exact
+    # match, fills columns [max(i - 3, 0), min(i + 4, 8)) of its 8 rows:
+    # 4 + 5 + 6 + 7 + 7 + 6 + 5 + 4. Lane 1, A against C, scores nothing in
+    # row 0 and breaks after its 4 cells
+    i32 = lambda *a: np.array(a, np.int32)
+    q = np.stack([np.arange(8) % 4, np.zeros(8)]).astype(np.int32)
+    t = np.stack([np.arange(8) % 4, np.ones(8)]).astype(np.int32)
+    mats = np.stack([opt.gamat, opt.ctmat]).astype(np.int32)
+    hand = (q, i32(8, 8), t, i32(8, 8), mats, i32(0, 0), i32(100, 100),
+            i32(0, 0), i32(60, 1))
+    assert run(hand, 0)[1].tolist() == [44, 4]
+
+    opt, arrs = _rand_case(np.random.default_rng(7), 24, 32, 64)
+    out, filled = run(arrs, opt.zdrop)
+    assert torch.equal(out, run(arrs, opt.zdrop, count=False)[0])
+    qlens, tlens = arrs[1].astype(np.int64), arrs[3].astype(np.int64)
+    assert (filled.numpy() > 0).all() and (filled.numpy() <= qlens * tlens).all()
+    # the planted lanes run on, the random ones break early
+    assert filled[0::2].sum() > filled[1::2].sum()
+    for b in range(len(qlens)):
+        one = tuple(a if a.ndim == 3 else a[b:b + 1] for a in arrs)
+        assert run(one, opt.zdrop)[1].tolist() == [int(filled[b])]

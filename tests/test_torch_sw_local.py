@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from biscuit_tpu.config import MemOpt
+from biscuit_tpu.config import MemOpt as JaxMemOpt
+from biscuit_tpu_torch.config import MemOpt
 from biscuit_tpu.ops import sw
 from biscuit_tpu.ops.sw_local import sw_local_kernel
 from biscuit_tpu_torch import kernels
 from biscuit_tpu_torch.ops.sw_local import sw_align_batch, sw_local_batch
 
-from torch_testdata import REPO, make_dataset
+from torch_testdata import REPO, jax_index, make_dataset
 
 torch.set_num_threads(1)
 
@@ -206,7 +207,8 @@ def test_engine_fn_matches_jax_engine(tmp_path):
     got = DeviceAligner(AlignerState(idx), "cpu").sw_local_batch_fn(opt)(
         reqs, xsubo)
     rep = stage_report()
-    want = JaxAligner(JaxState(idx)).sw_local_batch_fn(opt)(reqs, xsubo)
+    want = JaxAligner(JaxState(jax_index(idx))).sw_local_batch_fn(JaxMemOpt())(
+        reqs, xsubo)
     assert_same(got, want, reqs)
     scalar = [sw.sw_align(q, t, opt.gamat if p else opt.ctmat, opt.o_del,
                           opt.e_del, opt.o_ins, opt.e_ins, xstart=True,

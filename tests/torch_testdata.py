@@ -1,9 +1,14 @@
 """Oracle-free test data for the torch port's tests.
 
 `make_dataset` runs tools/make_testdata.py and builds the index next to
-the FASTA (build_index(fa, prefix=fa)), so both the in-process engines and
-the `align` CLI find it. The conftest `small_dataset` fixture also needs
-the reference oracle binary; these tests do not.
+the FASTA with the port's own build_index(fa, prefix=fa), so both
+the in-process engines and the `align` CLI find it. The conftest
+`small_dataset` fixture also needs the reference oracle binary; these tests
+do not. This module imports nothing of the JAX package at the top: the
+bring-up check on the card uses it too. A test that holds the port against
+the JAX package gives each side an index, options and reads of that side's
+own classes: `port_index` and `jax_index` carry an index across as plain
+numpy arrays and Python values.
 """
 import os
 import subprocess
@@ -21,7 +26,7 @@ def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
     makes none), so that global alignment and its traceback have work.
     pe=True writes n_reads pairs instead, and the reads path is the pair
     (reads_1.fq, reads_2.fq). index=False builds no index (None)."""
-    from biscuit_tpu.index.build import build_index
+    from biscuit_tpu_torch.index.build import build_index
     args = [sys.executable, os.path.join(REPO, "tools", "make_testdata.py"),
             str(d), "--genome-size", str(genome_size), "--n-reads",
             str(n_reads), "--n-chroms", str(n_chroms), "--seed", str(seed)]
@@ -85,13 +90,53 @@ def add_indels(fq, every, seed):
         f.write("\n".join(lines) + "\n")
 
 
-def load_reads(path, n):
-    from biscuit_tpu.io.fastq import fastq_iter, read_batch
-    return read_batch(fastq_iter(str(path)), None, 1 << 60)[:n]
+def _fastq(jax_pkg):
+    if jax_pkg:
+        from biscuit_tpu.io import fastq
+    else:
+        from biscuit_tpu_torch.io import fastq
+    return fastq
 
 
-def load_pairs(fq1, fq2):
+def load_reads(path, n, jax_pkg=False):
+    """The first n reads as the port's BSeq (the JAX package's with
+    jax_pkg=True)."""
+    fastq = _fastq(jax_pkg)
+    return fastq.read_batch(fastq.fastq_iter(str(path)), None, 1 << 60)[:n]
+
+
+def load_pairs(fq1, fq2, jax_pkg=False):
     """Every pair of the two FASTQs, mates interleaved, as the CLI reads
     them."""
-    from biscuit_tpu.io.fastq import fastq_iter, read_batch
-    return read_batch(fastq_iter(str(fq1)), fastq_iter(str(fq2)), 1 << 60)
+    fastq = _fastq(jax_pkg)
+    return fastq.read_batch(fastq.fastq_iter(str(fq1)),
+                            fastq.fastq_iter(str(fq2)), 1 << 60)
+
+
+_STRAND_FIELDS = ("words", "occ_cp", "L2", "primary", "seq_len", "sa_samples",
+                  "sa_intv")
+
+
+def index_fields(idx):
+    """The fields of either package's BisIndex as numpy arrays, Python
+    values and dicts: the arguments of bisindex_from_numpy."""
+    strand = lambda s: {f: getattr(s, f) for f in _STRAND_FIELDS}
+    return dict(par=strand(idx.par), dau=strand(idx.dau), pac=idx.pac,
+                anns=[dict(vars(a)) for a in idx.anns],
+                ambs=[dict(vars(a)) for a in idx.ambs], l_pac=idx.l_pac)
+
+
+def port_index(jax_idx):
+    """The port's BisIndex over the arrays of the JAX package's."""
+    from biscuit_tpu_torch.index.fmindex import bisindex_from_numpy
+    return bisindex_from_numpy(**index_fields(jax_idx))
+
+
+def jax_index(port_idx):
+    """The JAX package's BisIndex over the arrays of the port's."""
+    from biscuit_tpu.index.fasta import Amb, Ann
+    from biscuit_tpu.index.fmindex import BisIndex, StrandIndex
+    f = index_fields(port_idx)
+    return BisIndex(par=StrandIndex(**f["par"]), dau=StrandIndex(**f["dau"]),
+                    pac=f["pac"], anns=[Ann(**a) for a in f["anns"]],
+                    ambs=[Amb(**a) for a in f["ambs"]], l_pac=f["l_pac"])
