@@ -14,23 +14,28 @@ version: the plain version runs only for tensors on the CPU.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-Xcompiler", "-fPIC", "-shared"]
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-shared"]
 
 # kernel name -> launches since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
 LAUNCHES: Dict[str, int] = {}
 # source name -> seconds nvcc took in this process (absent: loaded from cache)
 BUILD_SECONDS: Dict[str, float] = {}
+# source name -> what ptxas -v said of each kernel it compiled in this
+# process: (kernel name with its template arguments, registers a thread,
+# spill stores and loads in bytes, static shared memory in bytes)
+BUILD_RESOURCES: Dict[str, List[Tuple[str, int, int, int, int]]] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -54,6 +59,49 @@ def _nvcc() -> str:
     return found
 
 
+def kernel_label(mangled: str) -> str:
+    """`sw_extend_kernel<5>` from the mangled name ptxas prints: the last of
+    its nested length-prefixed identifiers, with its template arguments
+    where they are int or long types or integer literals."""
+    m = re.match(r"_ZN?", mangled)
+    label, rest = None, mangled[m.end():] if m else ""
+    while True:  # nested names, each prefixed with its length
+        m = re.match(r"\d+", rest)
+        if not m or len(rest) < m.end() + int(m.group()):
+            break
+        label = rest[m.end():m.end() + int(m.group())]
+        rest = rest[m.end() + int(m.group()):]
+    if label is None:
+        return mangled
+    t = re.match(r"I((?:[il]|Li\d+E)+)E", rest)
+    if t:
+        args = [{"i": "int", "l": "long"}.get(a, a[2:-1])
+                for a in re.findall(r"[il]|Li\d+E", t.group(1))]
+        label += "<" + ", ".join(args) + ">"
+    return label
+
+
+def ptxas_resources(log: str) -> List[Tuple[str, int, int, int, int]]:
+    """The kernels of one `ptxas -v` log: (name, registers, spill store
+    bytes, spill load bytes, static shared bytes) for each entry function."""
+    found = []
+    name, spills = None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = kernel_label(m.group(1)), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            sm = re.search(r"(\d+) bytes smem", line)
+            found.append((name, int(m.group(1)), *spills,
+                          int(sm.group(1)) if sm else 0))
+            name = None
+    return found
+
+
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build (if needed) and load kernels/<name>.cu; declare each launcher
     in `signatures` (function name -> argtypes) with an int return."""
@@ -74,6 +122,7 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             raise KernelError(f"nvcc failed on {name}.cu:\n{r.stderr[-6000:]}")
         os.replace(tmp, so)  # atomic: a concurrent process never loads a torn file
         BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_RESOURCES[name] = ptxas_resources(r.stderr)
     lib = ctypes.CDLL(so)
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

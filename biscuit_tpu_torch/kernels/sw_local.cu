@@ -4,139 +4,262 @@
 //
 // Replaces the XLA function sw_local_kernel of biscuit_tpu/ops/sw_local.py.
 // There every lane stepped the target rows in lockstep over a [B, Lq] plane,
-// with F as a closed-form prefix scan, until the last lane stopped. Here one
-// thread owns one lane and walks its target rows i < tlen and, in each row,
-// the columns j < ext in order, so F is the serial lazy-F recurrence
-// F(j) = max(F(j-1) - e_ins, tF(j-1)), F(0) = 0, which equals the closed
-// form (sw_local.py:89-95). A lane stops at its own break row.
+// with F as a closed-form prefix scan, until the last lane stopped.
 //
-// The H and E rows live in device scratch in a lane-minor layout ([Lq, B],
-// neighbouring threads on neighbouring words, as K1's), the query and target
-// codes too. What bounds the kernel: a serial ext x tlen walk per thread,
-// about 160 x 400 cells at rescue shapes, each a few integer ops and 16 bytes
-// of L1/L2 traffic, with only B / 32 warps to hide the latency. The next
-// column's H and E are loaded before this column's are stored, so that their
-// loads overlap the cell's arithmetic.
+// What bounds it on an H100: integer operations, about 14 a DP cell over
+// ext x tlen cells a lane (some 160 x 300 at rescue shapes); the inputs are
+// under a kilobyte a lane and the output is 4 bytes a row. The DP is serial
+// over target rows, so the kernel is as fast as the card is full and a row
+// is short. Tensor cores, TMA and clusters have nothing to give an integer
+// recurrence whose row fits in registers: the whole design is to keep the
+// row out of device memory.
+//
+// What the design does about it (K1, sw_extend.cu, is built the same way):
+//  * a warp owns a lane and walks that lane's target rows until the lane's
+//    own break row; blocks of 4 warps, ceil(B / 4) blocks;
+//  * thread l holds the strip of C consecutive query columns
+//    [l * C, l * C + C) of the H and E rows in registers for the whole run
+//    (C a template parameter, 32 * C >= Lq); the diagonal value a strip
+//    needs from its left neighbour crosses by one __shfl_up_sync a row;
+//  * the strip's scores against each of the five target letters lie in
+//    shared memory (a conflict-free load a cell), pad columns scoring 0; the
+//    target's bases are read 32 rows at a time and broadcast by a shuffle;
+//  * F reads only H1 = max(M, E) of its own row, so
+//    F(j) = max(0, max_{k<j} tF(k) - (j-1-k) * e_ins), tF = max(H1 - oe_ins,
+//    0), the closed form of sw_local.py:88-95, is a max-plus prefix scan:
+//    a serial pass over the strip, five shuffle steps that combine the
+//    strips' carries (decayed by distance * e_ins), a second serial pass;
+//  * the row maximum and its first column are warp reductions
+//    (redux.sync), so the break decision is the same in every thread;
+//  * the stripe's end `ext` is a mask on the strip;
+//  * thread 0 writes the row's maximum; the rows after the stop are filled
+//    by all 32 threads.
 //
 // What must match sw_local_kernel bit for bit:
 //  * striped padding: ext is qlen rounded up to 16 (u8 lanes) or 8 (i16
 //    lanes); columns qlen <= j < ext score 0 against every target base and
-//    count in the row maximum; columns j >= ext stay 0 (never touched);
+//    count in the row maximum; columns j >= ext stay 0;
 //  * shift = (256 - min of the lane's matrix) & 0xFF on u8 lanes, 0 else;
 //  * the break after the row's update, on u8 saturation
 //    (gmax + shift >= 255) or gmax >= endsc, only in a row that raised gmax;
 //  * te starts at -1, qe at 0 (np.argmax of an all-zero Hmax); qe is the
 //    first column holding the maximum of the row that last raised gmax;
-//  * imax_rows[i, b] is the row maximum (>= 0) for every row the lane ran,
-//    NEGB for every row after it stopped.
+//  * imax_rows[i, b] is the row maximum (>= 0) for every row the lane ran
+//    (0 in every row of a lane whose query is empty), NEGB for every row
+//    after it stopped.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int NEGB = -(1 << 28);
+constexpr int WARPS = 4;  // lanes of the batch a block (a warp each)
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void sw_local_kernel(
-    const uint8_t* __restrict__ qT, const uint8_t* __restrict__ tT,
+// a sequence code (0..4; anything larger counts as 4) from a uint8 or an
+// int32 array, as the caller has it
+__device__ __forceinline__ int load_code(const void* p, size_t idx,
+                                         int code_bytes) {
+  const unsigned c = code_bytes == 4 ? (unsigned)((const int32_t*)p)[idx]
+                                     : (unsigned)((const uint8_t*)p)[idx];
+  return (int)min(c, 4u);
+}
+
+// the bases of target rows i0 .. i0 + 31 of one lane, one a thread (4 past
+// the lane's last row)
+__device__ __forceinline__ int load_tile(const void* target, size_t row0,
+                                         int i0, int lane, int n_rows,
+                                         int code_bytes) {
+  const int r = i0 + lane;
+  return r < n_rows ? load_code(target, row0 + r, code_bytes) : 4;
+}
+
+template <int C>
+__global__ void __launch_bounds__(WARPS * 32) sw_local_kernel(
+    const void* __restrict__ query, const void* __restrict__ target,
     const int32_t* __restrict__ matb, const int32_t* __restrict__ qlens,
     const int32_t* __restrict__ tlens, const int32_t* __restrict__ endscv,
-    const int32_t* __restrict__ u8v, int32_t* __restrict__ hbuf,
-    int32_t* __restrict__ ebuf, int32_t* __restrict__ out,
-    int32_t* __restrict__ rows, int B, int Lq, int Lt, int o_del, int e_del,
-    int o_ins, int e_ins) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    const int32_t* __restrict__ u8v, int32_t* __restrict__ out,
+    int32_t* __restrict__ rows, int B, int Lq, int Lt, int code_bytes,
+    int o_del, int e_del, int o_ins, int e_ins) {
+  __shared__ int32_t prof[WARPS][5][C][32];  // [target letter][k][thread]
+  __shared__ int32_t smat[WARPS][32];
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + wid;
+  if (b >= B) return;  // a whole warp; the kernel has no block-wide barrier
   const size_t sB = (size_t)B;
-  int32_t* h = hbuf + b;  // H(j) at h[j * B]
-  int32_t* e = ebuf + b;
   const int qlen = qlens[b], tlen = tlens[b], endsc = endscv[b];
   const bool u8 = u8v[b] > 0;
-  const int32_t* mat = matb + (size_t)b * 25;
-  int mn = mat[0];
-  for (int k = 1; k < 25; ++k) mn = min(mn, mat[k]);
-  const int shift = u8 ? (256 - mn) & 0xFF : 0;
-  const int lanes = u8 ? 16 : 8;
-  const int ext = min((qlen + lanes - 1) / lanes * lanes, Lq);
   const int oe_del = o_del + e_del, oe_ins = o_ins + e_ins;
+  const int c0 = lane * C;  // the strip's first column
+  const int n_rows = min(tlen, Lt);
 
-  for (int j = 0; j < ext; ++j) {
-    h[j * sB] = 0;
-    e[j * sB] = 0;
+  // the lane's matrix and its minimum, then the strip's profile
+  const int mv = lane < 25 ? matb[(size_t)b * 25 + lane] : INT_MAX;
+  if (lane < 25) smat[wid][lane] = mv;
+  const int mn = __reduce_min_sync(FULL, mv);
+  const int shift = u8 ? (256 - mn) & 0xFF : 0;
+  const int stripe = u8 ? 16 : 8;
+  const int ext = min((qlen + stripe - 1) / stripe * stripe, Lq);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = c0 + k;
+    const int qc = j < Lq ? load_code(query, (size_t)b * Lq + j, code_bytes) : 4;
+#pragma unroll
+    for (int tc = 0; tc < 5; ++tc)
+      prof[wid][tc][k][lane] = j < qlen ? smat[wid][tc * 5 + qc] : 0;
   }
+
   int gmax = 0, te = -1, qe = 0;
   int i = 0;
-  const int n_rows = min(tlen, Lt);
-  for (; i < n_rows && ext > 0; ++i) {
-    const int tb = min((int)tT[(size_t)i * sB + b], 4);
-    const int s0 = mat[tb * 5 + 0], s1 = mat[tb * 5 + 1],
-              s2 = mat[tb * 5 + 2], s3 = mat[tb * 5 + 3],
-              s4 = mat[tb * 5 + 4];
-    int hd = 0;           // H of the previous row at column j - 1
-    int hj = h[0], ej = e[0];  // H and E of the previous row at column j
-    int f = 0, rmax = 0, rarg = 0;
-    for (int j = 0; j < ext; ++j) {
-      int hn = 0, en = 0;
-      if (j + 1 < ext) {
-        hn = h[(j + 1) * sB];
-        en = e[(j + 1) * sB];
+  if (ext > 0) {
+    int HH[C], EE[C];  // H and E of the previous row on the strip's columns
+#pragma unroll
+    for (int k = 0; k < C; ++k) HH[k] = EE[k] = 0;
+    // the target's bases, 32 rows a tile, one a thread, the next in flight
+    const size_t row0 = (size_t)b * Lt;
+    int tile = load_tile(target, row0, 0, lane, n_rows, code_bytes);
+    int tile_next = load_tile(target, row0, 32, lane, n_rows, code_bytes);
+    for (; i < n_rows; ++i) {
+      if ((i & 31) == 0 && i > 0) {
+        tile = tile_next;
+        tile_next =
+            load_tile(target, row0, i + 32, lane, n_rows, code_bytes);
       }
-      int s = 0;
-      if (j < qlen) {
-        const int qc = qT[(size_t)j * sB + b];
-        s = qc == 0 ? s0 : qc == 1 ? s1 : qc == 2 ? s2 : qc == 3 ? s3 : s4;
+      const int tb = __shfl_sync(FULL, tile, i & 31);
+      // H of the previous row at the column left of the strip
+      int hd = __shfl_up_sync(FULL, HH[C - 1], 1);
+      if (lane == 0) hd = 0;
+
+      // pass 1 over the strip: H1 = max(M, E), masked at ext, and the
+      // strip's own carry g = F at the column after the strip if nothing
+      // came from the left
+      int H1[C];
+      int g = 0;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const bool inb = c0 + k < ext;
+        const int m = max(hd + prof[wid][tb][k][lane], 0);
+        const int h1 = inb ? max(m, EE[k]) : 0;
+        H1[k] = h1;
+        g = max(g - e_ins, max(h1 - oe_ins, 0));
+        hd = HH[k];
       }
-      const int M = max(hd + s, 0);
-      const int H1 = max(M, ej);
-      const int H = max(H1, f);
-      h[j * sB] = H;
-      e[j * sB] = max(ej - e_del, max(H - oe_del, 0));
-      f = max(f - e_ins, max(H1 - oe_ins, 0));
-      if (H > rmax) {
-        rmax = H;
-        rarg = j;
+      // the strips' carries combined: v is F at the column after this strip
+      int v = g;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, v, d);
+        if (lane >= d) v = max(v, u - d * C * e_ins);
       }
-      hd = hj;
-      hj = hn;
-      ej = en;
+      int f = __shfl_up_sync(FULL, v, 1);  // F at this strip's first column
+      if (lane == 0) f = 0;
+
+      // pass 2: H, the next row's E, the strip's maximum and its first column
+      int lm = 0, lj = c0;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const bool inb = c0 + k < ext;
+        const int h1 = H1[k];
+        const int H = inb ? max(h1, f) : 0;
+        f = max(f - e_ins, max(h1 - oe_ins, 0));
+        EE[k] = inb ? max(EE[k] - e_del, max(H - oe_del, 0)) : 0;
+        HH[k] = H;
+        if (H > lm) {
+          lm = H;
+          lj = c0 + k;
+        }
+      }
+      const int rmax = __reduce_max_sync(FULL, lm);
+      if (lane == 0) rows[(size_t)i * sB + b] = rmax;
+      if (rmax > gmax) {
+        qe = __reduce_min_sync(FULL, lm == rmax ? lj : INT_MAX);
+        gmax = rmax;
+        te = i;
+        if ((u8 && gmax + shift >= 255) || gmax >= endsc) {
+          ++i;
+          break;
+        }
+      }
     }
-    rows[(size_t)i * sB + b] = rmax;
-    if (rmax > gmax) {
-      gmax = rmax;
-      te = i;
-      qe = rarg;
-      if ((u8 && gmax + shift >= 255) || gmax >= endsc) {
-        ++i;
-        break;
-      }
-    }
+  } else {
+    // an empty query: the lane runs all its rows, each with maximum 0
+    for (int r = lane; r < n_rows; r += 32) rows[(size_t)r * sB + b] = 0;
+    i = n_rows;
   }
-  // a lane with ext == 0 (qlen 0) runs all its rows, each with maximum 0
-  if (ext == 0)
-    for (; i < n_rows; ++i) rows[(size_t)i * sB + b] = 0;
-  for (; i < Lt; ++i) rows[(size_t)i * sB + b] = NEGB;
-  out[0 * sB + b] = gmax;
-  out[1 * sB + b] = te;
-  out[2 * sB + b] = qe;
-  out[3 * sB + b] = shift;
-  out[4 * sB + b] = (u8 && gmax + shift >= 255) ? 1 : 0;
+  for (int r = i + lane; r < Lt; r += 32) rows[(size_t)r * sB + b] = NEGB;
+  if (lane == 0) {
+    out[0 * sB + b] = gmax;
+    out[1 * sB + b] = te;
+    out[2 * sB + b] = qe;
+    out[3 * sB + b] = shift;
+    out[4 * sB + b] = (u8 && gmax + shift >= 255) ? 1 : 0;
+  }
+}
+
+template <int C>
+int launch(const void* query, const void* target, const void* matb,
+           const void* qlens, const void* tlens, const void* endsc,
+           const void* u8, void* out, void* rows, int B, int Lq, int Lt,
+           int code_bytes, int o_del, int e_del, int o_ins, int e_ins,
+           void* stream) {
+  const int blocks = (B + WARPS - 1) / WARPS;
+  sw_local_kernel<C><<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      query, target, (const int32_t*)matb, (const int32_t*)qlens,
+      (const int32_t*)tlens, (const int32_t*)endsc, (const int32_t*)u8,
+      (int32_t*)out, (int32_t*)rows, B, Lq, Lt, code_bytes, o_del, e_del,
+      o_ins, e_ins);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int resident(void) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, sw_local_kernel<C>, WARPS * 32, 0) != cudaSuccess)
+    return -1;
+  return blocks * WARPS;
 }
 
 }  // namespace
 
-extern "C" int sw_local(const void* qT, const void* tT, const void* matb,
-                        const void* qlens, const void* tlens,
-                        const void* endsc, const void* u8, void* hbuf,
-                        void* ebuf, void* out, void* rows, int B, int Lq,
-                        int Lt, int o_del, int e_del, int o_ins, int e_ins,
-                        void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  sw_local_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)qT, (const uint8_t*)tT, (const int32_t*)matb,
-      (const int32_t*)qlens, (const int32_t*)tlens, (const int32_t*)endsc,
-      (const int32_t*)u8, (int32_t*)hbuf, (int32_t*)ebuf, (int32_t*)out,
-      (int32_t*)rows, B, Lq, Lt, o_del, e_del, o_ins, e_ins);
-  return (int)cudaGetLastError();
+// every instance of the strip width C; the wrapper picks the smallest with
+// 32 * C >= Lq (ops/strip_scan.py keeps the same list)
+#define FOR_EACH_C(X) X(2) X(4) X(5) X(6) X(8) X(12) X(16)
+
+extern "C" int sw_local(const void* query, const void* target,
+                        const void* matb, const void* qlens,
+                        const void* tlens, const void* endsc, const void* u8,
+                        void* out, void* rows, int B, int Lq, int Lt,
+                        int code_bytes, int C, int o_del, int e_del,
+                        int o_ins, int e_ins, void* stream) {
+  if (Lq > 32 * C || (code_bytes != 1 && code_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  switch (C) {
+#define CASE(N)                                                              \
+  case N:                                                                    \
+    return launch<N>(query, target, matb, qlens, tlens, endsc, u8, out,     \
+                     rows, B, Lq, Lt, code_bytes, o_del, e_del, o_ins,      \
+                     e_ins, stream);
+    FOR_EACH_C(CASE)
+#undef CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// warps (lanes of the batch) of instance C that one SM holds at once, -1 for
+// no such instance
+extern "C" int sw_local_resident_warps(int C) {
+  switch (C) {
+#define CASE(N) \
+  case N:       \
+    return resident<N>();
+    FOR_EACH_C(CASE)
+#undef CASE
+  }
+  return -1;
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -7,7 +7,9 @@ score, qle, tle, gtle, gscore, max_off.
 
 The band clamp (ksw.c:399-407) runs here for both paths, with the JAX
 wrapper's float32 division truncated to int32. Then a CUDA tensor goes to
-K1 (kernels/sw_extend.cu, one thread per lane) and a CPU tensor to
+K1 (kernels/sw_extend.cu: a warp per lane, the DP row in registers in
+strips of C columns a thread, F by a warp scan; the instance of C is picked
+from Lq, and an Lq no instance takes raises) and a CPU tensor to
 `sw_extend_batch_plain`, a row loop vectorized over lanes that follows
 `_sw_kernel` step by step.
 """
@@ -16,6 +18,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from . import strip_scan
 
 NEG = -(1 << 28)
 
@@ -135,13 +138,54 @@ def sw_extend_batch_plain(query, qlens, target, tlens, mat_b, w, h0,
                         max_off]).to(i32)
 
 
-# (qT, tT, mat_b, qlens, tlens, w, h0, hbuf, ebuf, out,
-#  B, Lq, Lt, o_del, e_del, o_ins, e_ins, zdrop)
-_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+def f_row_strips(M, beg, end, oe_ins: int, e_ins: int, C: int):
+    """F of one row as K1 computes it, from M [B, Lq] and the band
+    [beg, end) of each lane ([B] int32): tF = max(M - oe_ins, 0) inside the
+    band and 0 outside it, the strip-and-carry scan, and the band's mask on
+    the result (a carry that runs past `end` is dropped). For the CPU tests
+    of the kernel's algebra; no caller on the main path."""
+    j = torch.arange(M.shape[1], dtype=torch.int32)[None, :]
+    jm = (j >= beg[:, None]) & (j < end[:, None])
+    zero = torch.zeros((), dtype=M.dtype)
+    tF = torch.where(jm, torch.clamp(M - oe_ins, min=0), zero)
+    return torch.where(jm, strip_scan.f_row_strips(tF, e_ins, C), zero)
+
+
+# (query, target, mat_b, qlens, tlens, w, h0, out,
+#  B, Lq, Lt, code_bytes, C, o_del, e_del, o_ins, e_ins, zdrop)
+_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
 
 
 def _lib():
     return kernels.load("sw_extend", {"sw_extend": _SIG})
+
+
+def resident_warps(C: int) -> int:
+    """Warps (lanes of the batch) of K1's instance C that one SM holds at
+    once, from the CUDA occupancy calculator."""
+    return int(_lib().sw_extend_resident_warps(C))
+
+
+def _launch(query, qlens, target, tlens, mat_b, w, h0, o_del: int,
+            e_del: int, o_ins: int, e_ins: int, zdrop: int) -> torch.Tensor:
+    """Launch K1 on prepared inputs: query [B, Lq], target [B, Lt] uint8 or
+    int32 codes as they come (lane-major, one lane's row contiguous), mat_b
+    [B, 25] and qlens, tlens, w (clamped), h0 [B], all int32. Returns
+    [6, B] int32. No host sync."""
+    B, Lq = query.shape
+    Lt = target.shape[1]
+    C = strip_scan.strip_width(Lq)
+    dev = kernels.check_cuda(query, target, mat_b, qlens, tlens, w, h0)
+    kernels.check_lanes(B, qlens, tlens, w, h0)
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch(_lib(), "sw_extend", "sw_extend", dev,
+                       kernels.ptr(query), kernels.ptr(target),
+                       kernels.ptr(mat_b), kernels.ptr(qlens),
+                       kernels.ptr(tlens), kernels.ptr(w), kernels.ptr(h0),
+                       kernels.ptr(out), B, Lq, Lt, query.element_size(), C,
+                       o_del, e_del, o_ins, e_ins, zdrop)
+    return out
 
 
 def sw_extend_batch(query, qlens, target, tlens, mats, matsel,
@@ -151,8 +195,7 @@ def sw_extend_batch(query, qlens, target, tlens, mats, matsel,
     end_bonus/h0/matsel [B] int32, mats [M, 5, 5] int32. Returns [6, B]
     int32: score, qle, tle, gtle, gscore, max_off (exact ksw_extend2)."""
     i32 = torch.int32
-    B, Lq = query.shape
-    Lt = target.shape[1]
+    B = query.shape[0]
     qlens, tlens, h0 = qlens.to(i32), tlens.to(i32), h0.to(i32)
     mats = mats.to(i32)
     mat_b = mats[matsel.long()].reshape(B, 25)
@@ -162,20 +205,6 @@ def sw_extend_batch(query, qlens, target, tlens, mats, matsel,
         return sw_extend_batch_plain(query.to(i32), qlens, target.to(i32),
                                      tlens, mat_b, w, h0,
                                      o_del, e_del, o_ins, e_ins, zdrop)
-    qT = query.t().to(torch.uint8).contiguous()
-    tT = target.t().to(torch.uint8).contiguous()
-    mat_b = mat_b.contiguous()
-    dev = kernels.check_cuda(qT, tT, mat_b, qlens, tlens, w, h0)
-    kernels.check_lanes(B, qlens, tlens, w, h0)
-    out = torch.empty((6, B), dtype=i32, device=dev)
-    if B == 0:
-        return out
-    hbuf = torch.empty((Lq + 1, B), dtype=i32, device=dev)
-    ebuf = torch.empty((Lq + 1, B), dtype=i32, device=dev)
-    kernels.launch(_lib(), "sw_extend", "sw_extend", dev,
-                   kernels.ptr(qT), kernels.ptr(tT), kernels.ptr(mat_b),
-                   kernels.ptr(qlens), kernels.ptr(tlens), kernels.ptr(w),
-                   kernels.ptr(h0), kernels.ptr(hbuf), kernels.ptr(ebuf),
-                   kernels.ptr(out), B, Lq, Lt, o_del, e_del, o_ins, e_ins,
-                   zdrop)
-    return out
+    query, target = strip_scan.kernel_codes(query, target)
+    return _launch(query, qlens, target, tlens, mat_b.contiguous(), w, h0,
+                   o_del, e_del, o_ins, e_ins, zdrop)

@@ -1,8 +1,10 @@
 """Batched local alignment (exact ksw_align2) for mate rescue.
 
 Port of biscuit_tpu/ops/sw_local.py. `sw_local_batch` is K7, the XLA
-function `sw_local_kernel`: a CUDA tensor goes to kernels/sw_local.cu (one
-thread per lane) and a CPU tensor to `sw_local_batch_plain`, a row loop
+function `sw_local_kernel`: a CUDA tensor goes to kernels/sw_local.cu (a
+warp per lane, the DP row in registers in strips of C columns a thread, F
+by a warp scan; the instance of C is picked from Lq, and an Lq no instance
+takes raises) and a CPU tensor to `sw_local_batch_plain`, a row loop
 vectorized over lanes that follows `sw_local_kernel` step by step. Both
 return gmax, te, qe, shift, sat ([B] int32) and the per-row maxima
 imax_rows ([Lt, B] int32), from which the host (`local_post`, copied
@@ -23,6 +25,7 @@ import torch
 from ..ops.sw import KswResult
 
 from .. import kernels
+from . import strip_scan
 
 NEGB = -(1 << 28)
 
@@ -96,13 +99,57 @@ def sw_local_batch_plain(query, qlens, target, tlens, mat_b, minsc, endsc, u8,
                 sat=sat.to(i32), imax_rows=rows)
 
 
-# (qT, tT, mat_b, qlens, tlens, endsc, u8, hbuf, ebuf, out, rows,
-#  B, Lq, Lt, o_del, e_del, o_ins, e_ins)
-_SIG = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+def f_row_strips(H1, ext, oe_ins: int, e_ins: int, C: int):
+    """F of one row as K7 computes it, from H1 = max(M, E) [B, Lq] and each
+    lane's striped width ext ([B] int32): H1 cut to 0 at ext,
+    tF = max(H1 - oe_ins, 0), the strip-and-carry scan, and the cut at ext
+    on the result. For the CPU tests of the kernel's algebra; no caller on
+    the main path."""
+    j = torch.arange(H1.shape[1], dtype=torch.int32)[None, :]
+    inb = j < ext[:, None]
+    zero = torch.zeros((), dtype=H1.dtype)
+    tF = torch.clamp(torch.where(inb, H1, zero) - oe_ins, min=0)
+    return torch.where(inb, strip_scan.f_row_strips(tF, e_ins, C), zero)
+
+
+# (query, target, mat_b, qlens, tlens, endsc, u8, out, rows,
+#  B, Lq, Lt, code_bytes, C, o_del, e_del, o_ins, e_ins)
+_SIG = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
 
 
 def _lib():
     return kernels.load("sw_local", {"sw_local": _SIG})
+
+
+def resident_warps(C: int) -> int:
+    """Warps (lanes of the batch) of K7's instance C that one SM holds at
+    once, from the CUDA occupancy calculator."""
+    return int(_lib().sw_local_resident_warps(C))
+
+
+def _launch(query, qlens, target, tlens, mat_b, endsc, u8, o_del: int,
+            e_del: int, o_ins: int, e_ins: int):
+    """Launch K7 on prepared inputs: query [B, Lq], target [B, Lt] uint8 or
+    int32 codes as they come (lane-major, one lane's row contiguous), mat_b
+    [B, 25] and qlens, tlens, endsc, u8 [B], all int32, the lengths within
+    [0, Lq] and [0, Lt]. Returns (out [5, B], imax_rows [Lt, B]) int32. No
+    host sync."""
+    B, Lq = query.shape
+    Lt = target.shape[1]
+    C = strip_scan.strip_width(Lq)
+    dev = kernels.check_cuda(query, target, mat_b, qlens, tlens, endsc, u8)
+    kernels.check_lanes(B, qlens, tlens, endsc, u8)
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    rows = torch.empty((Lt, B), dtype=torch.int32, device=dev)
+    if B:
+        kernels.launch(_lib(), "sw_local", "sw_local", dev,
+                       kernels.ptr(query), kernels.ptr(target),
+                       kernels.ptr(mat_b), kernels.ptr(qlens),
+                       kernels.ptr(tlens), kernels.ptr(endsc),
+                       kernels.ptr(u8), kernels.ptr(out), kernels.ptr(rows),
+                       B, Lq, Lt, query.element_size(), C, o_del, e_del,
+                       o_ins, e_ins)
+    return out, rows
 
 
 def sw_local_batch(query, qlens, target, tlens, mats, matsel,
@@ -123,26 +170,13 @@ def sw_local_batch(query, qlens, target, tlens, mats, matsel,
         return sw_local_batch_plain(query.to(i32), qlens, target.to(i32),
                                     tlens, mat_b, minsc, endsc, u8,
                                     o_del, e_del, o_ins, e_ins)
-    qT = query.t().to(torch.uint8).contiguous()
-    tT = target.t().to(torch.uint8).contiguous()
-    mat_b = mat_b.contiguous()
-    dev = kernels.check_cuda(qT, tT, mat_b, qlens, tlens, endsc, u8)
-    kernels.check_lanes(B, qlens, tlens, endsc, u8)
     if B and bool(((qlens < 0) | (qlens > Lq) | (tlens < 0)
                    | (tlens > Lt)).any()):
         raise ValueError(f"qlens must lie in [0, Lq={Lq}], tlens in "
                          f"[0, Lt={Lt}]")
-    out = torch.empty((5, B), dtype=i32, device=dev)
-    rows = torch.empty((Lt, B), dtype=i32, device=dev)
-    if B:
-        hbuf = torch.empty((Lq, B), dtype=i32, device=dev)
-        ebuf = torch.empty((Lq, B), dtype=i32, device=dev)
-        kernels.launch(_lib(), "sw_local", "sw_local", dev,
-                       kernels.ptr(qT), kernels.ptr(tT), kernels.ptr(mat_b),
-                       kernels.ptr(qlens), kernels.ptr(tlens),
-                       kernels.ptr(endsc), kernels.ptr(u8), kernels.ptr(hbuf),
-                       kernels.ptr(ebuf), kernels.ptr(out), kernels.ptr(rows),
-                       B, Lq, Lt, o_del, e_del, o_ins, e_ins)
+    query, target = strip_scan.kernel_codes(query, target)
+    out, rows = _launch(query, qlens, target, tlens, mat_b.contiguous(),
+                        endsc, u8, o_del, e_del, o_ins, e_ins)
     gmax, te, qe, shift, sat = out.unbind(0)
     return dict(gmax=gmax, te=te, qe=qe, shift=shift, sat=sat,
                 imax_rows=rows)

@@ -16,7 +16,12 @@ Phases, one line each (more for the kernel table):
      fill, early breaks taken off) and, for the count scatter-add, the time
      of the one PyTorch call
      that computes it; the seeder and the SA walk also on a 50 Mbp index
-     (tables twice the L2)
+     (tables twice the L2). The two DP kernels that give a warp a lane (K1
+     sw_extend, K7 sw_local) also run the edge lanes of
+     tests/torch_testdata.py at query widths that launch every compiled
+     strip width, on uint8 and int32 codes, under e_ins of 0, 1 and 3, and
+     must refuse a query wider than any instance; their rows give the
+     launch alone beside the wrapper, K1's also at a late round's 256 lanes
   4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
      reads (tools/make_testdata.py, plus SNPs and small indels so that
      global alignment has work), the index built in-process, then the
@@ -30,7 +35,8 @@ Phases, one line each (more for the kernel table):
      have run, and more damaged mates must be mapped than in a run with
      rescue off (-S). Then K7's row of the kernel table: its calls caught
      on this path, and numpy-seeded i16, saturating u8 and odd-qlen lanes,
-     against its plain version
+     against its plain version. Then the same PE align once more under
+     torch.profiler: the card's busy time and idle share, device time by name
   6. the pileup slice end to end: a 400 kbp genome at 30x (80,000 directional
      WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
      card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
@@ -46,6 +52,7 @@ Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
 """
 import contextlib
+import gc
 import io
 import json
 import os
@@ -309,6 +316,17 @@ def smoke(work: str) -> int:
         f"{time.perf_counter() - t0:.1f} s; per source "
         f"{json.dumps({k: round(v, 2) for k, v in kernels.BUILD_SECONDS.items()})}")
 
+    for src in sorted(kernels.BUILD_RESOURCES):
+        for kern, regs, st, ld, smem in kernels.BUILD_RESOURCES[src]:
+            say(f"[2] ptxas {src}.cu {kern}: {regs} registers, spills "
+                f"{st} + {ld} bytes, {smem} bytes of static shared memory")
+    from biscuit_tpu_torch.ops import strip_scan
+    say("[2] warps resident an SM (CUDA occupancy calculator), by strip width "
+        "C: " + json.dumps({name: {C: op.resident_warps(C)
+                                  for C in strip_scan.STRIP_WIDTHS}
+                            for name, op in (("sw_extend", sw_extend),
+                                             ("sw_local", sw_local))}))
+
     # the phase-4 data come first: K4 walks the phase-4 index. The generator
     # makes no indels and few mismatches, which would leave global alignment
     # (K2) without work: SNPs at a human density and an indel in every 16th
@@ -348,21 +366,46 @@ def smoke(work: str) -> int:
             f"operations), library call {lib} [{card}]")
 
     # K1 at the engine's shapes, then the adversarial band widths
+    from torch_testdata import (DP_EDGE_SHAPES, extend_edge_case,
+                                local_edge_case)
+
+    def launched(name, fn, n=1):
+        """fn() must launch kernel `name` exactly n times: a CUDA tensor
+        never reaches a plain version."""
+        n0 = kernels.LAUNCHES.get(name, 0)
+        got = fn()
+        if kernels.LAUNCHES.get(name, 0) - n0 != n:
+            raise AssertionError(f"{name} launched "
+                                 f"{kernels.LAUNCHES.get(name, 0) - n0} times, "
+                                 f"expected {n}")
+        return got
+
     err, ms, pms = 0, 0.0, 0.0
     for w_val in (None, 1, 2, 5, 17):
         opt, a = ext_case(rng, 4096, 150, 300, w_val)
         q, ql, t, tl, mats, msel, w, bonus, h0 = (T(x) for x in a)
         sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
-        mat_b = mats[msel.long()].reshape(-1, 25)
+        mat_b = mats[msel.long()].reshape(-1, 25).contiguous()
         wc = sw_extend.band_clamp(ql, w, bonus, mats, *sc)
         for zdrop in ((opt.zdrop,) if w_val is None else (0, 10, opt.zdrop)):
             k = lambda: sw_extend.sw_extend_batch(q, ql, t, tl, mats, msel, *sc,
                                                   w, bonus, zdrop, h0)
             p = lambda: sw_extend.sw_extend_batch_plain(q, ql, t, tl, mat_b, wc,
                                                         h0, *sc, zdrop)
-            err = max(err, compare(f"sw_extend w={w_val} zdrop={zdrop}", k(), p()))
+            err = max(err, compare(f"sw_extend w={w_val} zdrop={zdrop}",
+                                   launched("sw_extend", k), p()))
             if w_val is None:
                 ms, pms = cuda_ms(k, 20), cuda_ms(p, 3)
+                # the launch alone (no gather of the matrices, no band clamp
+                # with its sync), and a late round's 256 lanes both ways
+                raw = lambda n=4096: sw_extend._launch(
+                    q[:n], ql[:n], t[:n], tl[:n], mat_b[:n], wc[:n], h0[:n],
+                    *sc, zdrop)
+                late = lambda: sw_extend.sw_extend_batch(
+                    q[:256], ql[:256], t[:256], tl[:256], mats, msel[:256],
+                    *sc, w[:256], bonus[:256], zdrop, h0[:256])
+                k1_alone = cuda_ms(raw, 50)
+                k1_late = (cuda_ms(late, 20), cuda_ms(lambda: raw(256), 50))
                 # the cells these lanes fill before they break, counted by
                 # the plain version as it runs (its result was held to the
                 # kernel's just above); the whole band is the upper figure
@@ -374,10 +417,61 @@ def smoke(work: str) -> int:
                     raise AssertionError(f"sw_extend: {cells} cells filled "
                                          f"of a band of {band}")
                 moved = nbytes(q, ql, t, tl, mats, msel, w, bonus, h0, k())
+    # the edge lanes at every strip width: the wrapper on int32 and on uint8
+    # codes under the default scores with three band widths and z-drops,
+    # e_ins = 3 through the wrapper, and e_ins = 0 (which the band clamp
+    # divides by) through the launch alone with the band as given
+    k1_widths, n_edge = set(), 0
+    for shape in DP_EDGE_SHAPES:
+        k1_widths.add(strip_scan.strip_width(shape[1]))
+        for w_val, zdrops, scores, codes in (
+                (100, (0, 10, opt.zdrop), sc, torch.int32),
+                (2, (0, 10, opt.zdrop), sc, torch.int32),
+                (5, (opt.zdrop,), sc, torch.uint8),
+                (100, (opt.zdrop,), (5, 2, 3, 3), torch.int32),
+                (100, (opt.zdrop,), (6, 1, 6, 0), torch.uint8)):
+            a = extend_edge_case(42 + shape[1], *shape, w_val)
+            q, ql, t, tl, mats, msel, w, bonus, h0 = (T(x) for x in a)
+            qc, tc = q.to(codes), t.to(codes)
+            mat_b = mats[msel.long()].reshape(-1, 25).contiguous()
+            clamp = scores[3] > 0
+            wc = sw_extend.band_clamp(ql, w, bonus, mats, *scores) if clamp else w
+            for zdrop in zdrops:
+                if clamp:
+                    k = lambda: sw_extend.sw_extend_batch(
+                        qc, ql, tc, tl, mats, msel, *scores, w, bonus, zdrop, h0)
+                else:
+                    k = lambda: sw_extend._launch(qc, ql, tc, tl, mat_b, wc, h0,
+                                                  *scores, zdrop)
+                want = sw_extend.sw_extend_batch_plain(
+                    q, ql, t, tl, mat_b, wc, h0, *scores, zdrop)
+                err = max(err, compare(
+                    f"sw_extend edge {shape} w={w_val} zdrop={zdrop} "
+                    f"scores={scores} {codes}", launched("sw_extend", k), want))
+                n_edge += 1
+    if k1_widths != set(strip_scan.STRIP_WIDTHS):
+        raise AssertionError(f"sw_extend: strip widths {sorted(k1_widths)} "
+                             f"launched of {strip_scan.STRIP_WIDTHS}")
+    # a query wider than any instance raises; nothing launches, nothing
+    # falls back
+    a = [T(x) for x in extend_edge_case(1, 2, 32 * max(strip_scan.STRIP_WIDTHS)
+                                        + 1, 40)]
+    try:
+        launched("sw_extend", lambda: sw_extend.sw_extend_batch(
+            *a[:6], *sc, a[6], a[7], opt.zdrop, a[8]), n=0)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sw_extend took a query no instance fits")
+    say(f"[3] sw_extend at a late round's shape, B=256 of those lanes: wrapper "
+        f"{k1_late[0]:.4f} ms, launch alone {k1_late[1]:.4f} ms [{card}]")
     row("sw_extend", "sw_extend.cu", "biscuit_tpu/ops/pallas_sw.py:58",
         err, ms, pms, f"B=4096 Lq=150 Lt<=300, w in {{100,1,2,5,17}}, {cells} "
         f"cells filled at w=100 (the whole band: {band}), longest lane "
-        f"{int(filled.max())}", moved, cells * CELL_OPS["sw_extend"])
+        f"{int(filled.max())}; the wrapper {ms:.4f} ms, the launch alone "
+        f"{k1_alone:.4f} ms; + {n_edge} edge cases at strip widths "
+        f"{sorted(k1_widths)}, uint8 and int32 codes, e_ins 0/1/3: equal; a "
+        f"wider query refused", moved, cells * CELL_OPS["sw_extend"])
 
     # K2: DP and traceback
     q, ql, t, tl, msel, w = (T(x) for x in glob_case(rng, 2048, 150, 160))
@@ -629,6 +723,27 @@ def smoke(work: str) -> int:
         f"plain {cuda_ms(pw, 1):.4f} ms for 2^16, equal on 2^16 [{card}]")
     del fmb, bidx
 
+    from torch.profiler import ProfilerActivity, profile
+
+    def say_busy(tag, prof, wall, *must_have):
+        """Device time by name from a profile over `wall` seconds: events of
+        the card itself (kernels and copies); the host-side ops that
+        launched them carry the same device time a second time."""
+        on_card = torch.autograd.DeviceType.CUDA
+        by_name = sorted(((e.self_device_time_total, e.count, e.key)
+                          for e in prof.key_averages()
+                          if e.device_type == on_card
+                          and e.self_device_time_total > 0), reverse=True)
+        busy_ms = sum(us for us, _n, _k in by_name) / 1e3
+        for name in must_have:
+            if not any(name in key for _us, _n, key in by_name):
+                raise AssertionError(f"torch.profiler saw no {name} kernel")
+        say(f"[{tag}] device busy {busy_ms:.3f} ms of {wall * 1e3:.1f} ms "
+            f"wall: idle share {1 - busy_ms / (wall * 1e3):.5f} (kernels and "
+            f"copies of one stream, summed) [{card}]")
+        for us, n_ev, key in by_name[:8]:
+            say(f"[{tag}]   {us / 1e3:10.3f} ms  {n_ev:5d} x  {key[:90]}")
+
     # 4. the SE align slice end to end, through the CLI entry point
     from biscuit_tpu_torch import cli
     from biscuit_tpu_torch.align import device_engine
@@ -640,7 +755,9 @@ def smoke(work: str) -> int:
 
     def align(argv):
         """The CLI on the card, every count set to 0 just before it and read
-        just after: (SAM records, wall s, launches, stage report)."""
+        just after: (SAM records, wall s, launches, stage report). The
+        garbage of earlier phases is collected before the clock starts."""
+        gc.collect()
         torch.cuda.synchronize()
         kernels.reset_launches()
         device_engine.reset_stages()
@@ -770,6 +887,16 @@ def smoke(work: str) -> int:
         raise AssertionError(f"rescue placed no damaged mate ({dmapped} "
                              f"mapped with it, {smapped} without)")
 
+    # where the card's time goes on that path: the same PE align once more,
+    # warm, under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _body, wwall, _launches, wrep = align([fa, fq1, fq2])
+    say(f"[4b] profiled warm run: wall {wwall:.2f} s = "
+        f"{2 * N_PAIRS / wwall:.1f} reads/s; stages (s): "
+        f"{json.dumps({k: round(v, 3) for k, v in wrep.items()})} [{card}]")
+    say_busy("4b", prof, wwall, "sw_extend_kernel", "sw_local_kernel")
+
     # K7 against its plain version: each call caught on the PE path, then
     # numpy-seeded lanes (i16 and u8, saturating, odd qlens, endsc breaks)
     keys = ("gmax", "te", "qe", "shift", "sat", "imax_rows")
@@ -779,12 +906,13 @@ def smoke(work: str) -> int:
         mat_b = mats.to(torch.int32)[msel.long()].reshape(-1, 25)
         k = lambda: sw_local.sw_local_batch(*a)
         p = lambda: sw_local.sw_local_batch_plain(
-            q, ql, t, tl, mat_b, mn, en, u8, o_del, e_del, o_ins, e_ins)
+            q.to(torch.int32), ql, t.to(torch.int32), tl, mat_b, mn, en, u8,
+            o_del, e_del, o_ins, e_ins)
         return k, p
 
     def local_check(name, a):
         kf, pf = local_fns(a)
-        got, want = kf(), pf()
+        got, want = launched("sw_local", kf), pf()
         return compare(name, tuple(got[k] for k in keys),
                        tuple(want[k] for k in keys)), got
 
@@ -798,11 +926,52 @@ def smoke(work: str) -> int:
     n_sat, n_u8 = int(got["sat"].sum()), int(seeded[-1].sum())
     if n_sat == 0 or n_u8 in (0, n_seeded):
         raise AssertionError(f"seeded K7 lanes: {n_sat} saturated, {n_u8} u8")
+    # the edge lanes at every strip width, on int32 and on uint8 codes, under
+    # the default scores, e_ins = 0 (the scan's decay vanishes), e_ins = 3
+    # and scores that saturate the u8 lanes
+    k7_widths, n_edge = set(), 0
+    for B, Lq, Lt in DP_EDGE_SHAPES:
+        Lq = -(-Lq // 16) * 16
+        k7_widths.add(strip_scan.strip_width(Lq))
+        for (ma, mb, *scores), codes in (((1, 2, 6, 1, 6, 1), torch.int32),
+                                         ((1, 2, 6, 1, 6, 1), torch.uint8),
+                                         ((1, 2, 6, 1, 6, 0), torch.int32),
+                                         ((2, 3, 5, 2, 3, 3), torch.uint8),
+                                         ((4, 2, 6, 1, 6, 1), torch.int32)):
+            first, last = local_edge_case(7 + Lq, B, Lq, Lt, ma, mb)
+            q, ql, t, tl, mats, msel = (T(x) for x in first)
+            a = (q.to(codes), ql, t.to(codes), tl, mats, msel, *scores,
+                 *(T(x) for x in last))
+            err = max(err, local_check(
+                f"sw_local edge {(B, Lq, Lt)} a={ma} b={mb} scores={scores} "
+                f"{codes}", a)[0])
+            n_edge += 1
+    if k7_widths != set(strip_scan.STRIP_WIDTHS):
+        raise AssertionError(f"sw_local: strip widths {sorted(k7_widths)} "
+                             f"launched of {strip_scan.STRIP_WIDTHS}")
+    # a query wider than any instance raises; nothing launches
+    wide = 32 * max(strip_scan.STRIP_WIDTHS) + 16
+    first, last = local_edge_case(1, 2, wide, 40)
+    try:
+        launched("sw_local", lambda: sw_local.sw_local_batch(
+            *(T(x) for x in first), 6, 1, 6, 1, *(T(x) for x in last)), n=0)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sw_local took a query no instance fits")
     fwd = caught[0]  # the forward pass: every candidate of the chunk
     kf, pf = local_fns(fwd)
     ms = cuda_ms(kf, 20)
+    # the launch alone: without the gather of the matrices and the range
+    # check of the lengths with its sync
+    q, ql, t, tl, mats, msel, o_del, e_del, o_ins, e_ins, _mn, en, u8 = fwd
+    mat_b = mats.to(torch.int32)[msel.long()].reshape(-1, 25).contiguous()
+    qk, tk = strip_scan.kernel_codes(q, t)
+    k7_alone = cuda_ms(lambda: sw_local._launch(
+        qk, ql.int(), tk, tl.int(), mat_b, en.int(), u8.int(), o_del, e_del,
+        o_ins, e_ins), 50)
     # cells each lane computed: its striped width times the rows it ran.
-    # One thread walks a lane, so the longest lane bounds the kernel.
+    # A warp walks a lane, so the longest lane bounds the kernel from below.
     width = torch.where(fwd[-1] > 0, 16, 8)
     cells = ((fwd[1] + width - 1) // width * width
              * (kf()["imax_rows"] != sw_local.NEGB).sum(0))
@@ -810,9 +979,13 @@ def smoke(work: str) -> int:
         max(err, e2), ms, cuda_ms(pf, 1),
         f"path: {len(caught)} calls, forward B={fwd[0].shape[0]} "
         f"Lq={fwd[0].shape[1]} Lt={fwd[2].shape[1]}, {int(cells.sum())} "
-        f"cells, longest lane {int(cells.max())} "
-        f"({ms * 1e6 / max(int(cells.max()), 1):.1f} ns a cell); "
-        f"+ {n_seeded} seeded lanes ({n_u8} u8, {n_sat} saturated)",
+        f"cells, longest lane {int(cells.max())}; the wrapper {ms:.4f} ms, "
+        f"the launch alone {k7_alone:.4f} ms "
+        f"({k7_alone * 1e6 / max(int(cells.max()), 1):.1f} ns a cell of the "
+        f"longest lane); + {n_seeded} seeded lanes ({n_u8} u8, {n_sat} "
+        f"saturated), {n_edge} edge cases at strip widths "
+        f"{sorted(k7_widths)}, uint8 and int32 codes, e_ins 0/1/3: equal; a "
+        f"wider query refused",
         nbytes(*(x for x in fwd if torch.is_tensor(x)), *kf().values()),
         int(cells.sum()) * CELL_OPS["sw_local"], paths=("4b",))
     for r in table:
@@ -852,6 +1025,7 @@ def smoke(work: str) -> int:
     def pileup():
         """The CLI on the card, every count set to 0 just before it and read
         just after: (wall s, launches, stages)."""
+        gc.collect()
         torch.cuda.synchronize()
         kernels.reset_launches()
         plp_engine.reset_stages()
@@ -922,7 +1096,6 @@ def smoke(work: str) -> int:
                                      "pileup path")
     # where that time goes on the card: the same run once more, then under
     # torch.profiler for the device time of every kernel and copy
-    from torch.profiler import ProfilerActivity, profile
 
     def say_run(tag, wall, st):
         st = {k: round(v, 3) if isinstance(v, float) else v
@@ -936,21 +1109,7 @@ def smoke(work: str) -> int:
                              ProfilerActivity.CUDA]) as prof:
         wall, _launches, st2 = pileup()
     say_run("profiled run", wall, st2)
-    # events of the card itself (kernels and copies); the host-side ops
-    # that launched them carry the same device time a second time
-    on_card = torch.autograd.DeviceType.CUDA
-    by_name = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == on_card
-                      and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(us for us, _n, _k in by_name) / 1e3
-    if not any("pileup_count" in key for _us, _n, key in by_name):
-        raise AssertionError("torch.profiler saw no pileup_count kernel")
-    say(f"[6] device busy {busy_ms:.3f} ms of {wall * 1e3:.1f} ms wall: idle "
-        f"share {1 - busy_ms / (wall * 1e3):.5f} (kernels and copies of one "
-        f"stream, summed) [{card}]")
-    for us, n_ev, key in by_name[:8]:
-        say(f"[6]   {us / 1e3:10.3f} ms  {n_ev:5d} x  {key[:90]}")
+    say_busy("6", prof, wall, "pileup_count")
 
     # 5. neither jax nor the JAX package was imported
     theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")

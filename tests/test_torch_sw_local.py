@@ -7,6 +7,10 @@ wrapper, which picks it for CPU tensors) must equal the XLA function
 `sw_align_batch` must equal the scalar `sw.sw_align` in all seven fields;
 `local_post` must stay its JAX source's code; and the engine's
 `sw_local_batch_fn` must use the rescue's matrix order (mats[0] = ctmat).
+The edge lanes of torch_testdata.local_edge_case, which the bring-up check
+puts through the kernel on the card, go through the same comparison here;
+and the kernel's F scan in strips of C columns with decayed carries, which
+can run here, is held to the serial lazy-F recurrence.
 """
 import ast
 import os
@@ -21,9 +25,11 @@ from biscuit_tpu_torch.config import MemOpt
 from biscuit_tpu.ops import sw
 from biscuit_tpu.ops.sw_local import sw_local_kernel
 from biscuit_tpu_torch import kernels
-from biscuit_tpu_torch.ops.sw_local import sw_align_batch, sw_local_batch
+from biscuit_tpu_torch.ops.sw_local import (f_row_strips, sw_align_batch,
+                                            sw_local_batch)
 
-from torch_testdata import REPO, jax_index, make_dataset
+from torch_testdata import (DP_EDGE_SHAPES_CPU, REPO, jax_index,
+                            local_edge_case, make_dataset)
 
 torch.set_num_threads(1)
 
@@ -32,6 +38,8 @@ REGIMES = {  # a, b, o_del, e_del, o_ins, e_ins
     "cheap": (1, 1, 1, 1, 1, 1),
     "asym": (2, 3, 5, 2, 3, 1),
     "saturating": (4, 2, 6, 1, 6, 1),
+    "e_ins0": (1, 2, 6, 1, 6, 0),     # the scan's decay vanishes
+    "e_ins3": (2, 3, 5, 2, 3, 3),
 }
 FIELDS = ("score", "te", "qe", "score2", "te2", "tb", "qb")
 
@@ -80,15 +88,39 @@ def lane_case(rng, B, Lq, Lt, u8_mix, saturating=False):
     return q, qlens, t, tlens, matsel, minsc, endsc, u8
 
 
-@pytest.mark.parametrize("u8_mix", ["none", "all", "mixed"])
-@pytest.mark.parametrize("regime", ["default", "cheap", "asym", "saturating"])
+def _edge_params():
+    """The edge lanes at every CPU shape under the default scores and at two
+    under e_ins = 0, e_ins = 3 and the saturating scores."""
+    for B, Lq, Lt in DP_EDGE_SHAPES_CPU:
+        Lq16 = -(-Lq // 16) * 16
+        for regime in ("default", "e_ins0", "e_ins3", "saturating"):
+            if regime == "default" or Lq in (100, 160):
+                yield pytest.param(regime, (B, Lq16, Lt),
+                                   id=f"edge-{regime}-{B}-{Lq16}-{Lt}")
+
+
+@pytest.mark.parametrize("regime,u8_mix", [
+    *(pytest.param(r, u, id=f"{r}-{u}")
+      for r in ("default", "cheap", "asym", "saturating")
+      for u in ("none", "all", "mixed")),
+    *_edge_params()])
 def test_plain_matches_jax_kernel(regime, u8_mix):
+    """u8_mix a shape (B, Lq, Lt): the lanes of local_edge_case (stripes
+    that end inside a strip of the kernel, ties, empty query or target,
+    qlen = Lq), u8 and i16 lanes mixed."""
     a, b, *sc = REGIMES[regime]
-    mats = mk_mats(a, b).astype(np.int32)
-    rng = np.random.default_rng(
-        [*REGIMES].index(regime) * 3 + ["none", "all", "mixed"].index(u8_mix))
-    q, ql, t, tl, ms, mn, en, u8 = lane_case(rng, 40, 176, 420, u8_mix,
-                                             regime == "saturating")
+    if isinstance(u8_mix, tuple):
+        (q, ql, t, tl, mats, ms), (mn, en, u8) = local_edge_case(
+            7 + u8_mix[1], *u8_mix, a, b)
+        n_scored = u8_mix[0] // 2
+    else:
+        mats = mk_mats(a, b).astype(np.int32)
+        rng = np.random.default_rng(
+            [*REGIMES].index(regime) * 3
+            + ["none", "all", "mixed"].index(u8_mix))
+        q, ql, t, tl, ms, mn, en, u8 = lane_case(rng, 40, 176, 420, u8_mix,
+                                                 regime == "saturating")
+        n_scored = 30
     want = sw_local_kernel(*(jnp.asarray(x) for x in (q, ql, t, tl, mats, ms)),
                            *sc, jnp.asarray(mn), jnp.asarray(en),
                            jnp.asarray(u8))
@@ -102,9 +134,47 @@ def test_plain_matches_jax_kernel(regime, u8_mix):
         g, w = got[k].numpy(), np.asarray(want[k])
         assert g.dtype == np.int32 and g.shape == w.shape, k
         assert np.array_equal(g, w), f"{k}: lanes {np.nonzero(g != w)}"
-    if regime == "saturating" and u8_mix != "none":
+    if regime == "saturating" and u8_mix != "none" and len(ql) > 30:
         assert got["sat"].sum() > 0
-    assert (got["te"] >= 0).sum() > 30
+    assert (got["te"] >= 0).sum() > n_scored
+
+
+@pytest.mark.parametrize("e_ins", [0, 1, 3])
+@pytest.mark.parametrize("C", [2, 5, 8])
+def test_f_scan_in_strips_is_the_lazy_f(C, e_ins):
+    """One row's F as K7 computes it (strips of C columns, carries combined
+    by shifts of 1..16 and decayed by the columns crossed, the stripe's end
+    `ext` as a mask) against ksw's serial lazy-F chain,
+    F(0) = 0, F(j) = max(F(j-1) - e_ins, tF(j-1)), and against the closed
+    form of sw_local_batch_plain (and sw_local_kernel). ext falls inside
+    strips, on their edges, at 0 and at Lq."""
+    rng = np.random.default_rng(200 * C + e_ins)
+    B, Lq, oe_ins = 96, 32 * C // 16 * 16, 6 + e_ins
+    H1 = rng.integers(0, 40, (B, Lq)) * (rng.random((B, Lq)) < 0.3)
+    H1[::3] += rng.integers(0, 250, (B, Lq))[::3] * (rng.random((B, Lq)) < 0.05)[::3]
+    H1 = H1.astype(np.int32)
+    # the kernel's ext is a multiple of 8, which no strip of 2 or 8 columns
+    # straddles; the scan must hold for any cut, so half are arbitrary
+    ext = (rng.integers(0, Lq // 8 + 1, B) * 8).astype(np.int32)
+    ext[::2] = rng.integers(0, Lq + 1, B)[::2]
+    ext[:6] = (0, Lq, 8, 2 * C * 8, C + 1, 1)
+    j = np.arange(Lq)[None, :]
+    inb = j < ext[:, None]
+    tF = np.maximum(np.where(inb, H1, 0) - oe_ins, 0).astype(np.int32)
+    F = np.zeros_like(tF)
+    for k in range(1, Lq):
+        F[:, k] = np.maximum(F[:, k - 1] - e_ins, tF[:, k - 1])
+    want = np.where(inb, F, 0)
+    T = torch.from_numpy
+    got = f_row_strips(T(H1), T(ext), oe_ins, e_ins, C).numpy()
+    np.testing.assert_array_equal(got, want)
+    NEGB = -(1 << 28)
+    cm = np.maximum.accumulate(tF + j * e_ins, axis=1)
+    cm_excl = np.concatenate([np.full((B, 1), NEGB), cm[:, :-1]], 1)
+    plain = np.maximum(np.maximum(-j * e_ins, cm_excl - (j - 1) * e_ins), 0)
+    np.testing.assert_array_equal(got, np.where(inb, plain, 0))
+    assert (got > 0).sum() > B
+    assert any(e % C for e in ext.tolist())     # a cut inside a strip
 
 
 def scalar_case(regime, xsubo, seed=17, n=60):

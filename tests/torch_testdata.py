@@ -140,3 +140,173 @@ def jax_index(port_idx):
     return BisIndex(par=StrandIndex(**f["par"]), dau=StrandIndex(**f["dau"]),
                     pac=f["pac"], anns=[Ann(**a) for a in f["anns"]],
                     ambs=[Amb(**a) for a in f["ambs"]], l_pac=f["l_pac"])
+
+
+# ---------------------------------------------------------------------------
+# Lanes for the two DP kernels (K1 sw_extend, K7 sw_local) that aim at what a
+# warp-per-lane kernel with the row in strips of C columns a thread can get
+# wrong. The CPU tests put them through the plain versions and the JAX
+# functions, the bring-up check on the card through the kernels and the plain
+# versions: the same lanes on both sides.
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lt): every strip width the kernels are compiled for (32 * C >= Lq
+# with C in 2, 4, 5, 6, 8, 12, 16) and batch sizes around a warp and a block
+DP_EDGE_SHAPES = ((1, 16, 40), (31, 40, 64), (33, 100, 120), (130, 150, 300),
+                  (37, 160, 200), (9, 176, 190), (6, 250, 260), (5, 300, 310),
+                  (3, 500, 510))
+# the shapes the CPU tests run (each costs a JAX compilation): C = 2, 4, 5, 8
+DP_EDGE_SHAPES_CPU = ((1, 16, 40), (31, 40, 64), (33, 100, 120),
+                      (37, 160, 200), (6, 250, 260))
+
+
+def _planted(rng, q, n_t, kind):
+    """A target of n_t bases for query q: kind 0 a copy, 1 a copy that lost
+    1-6 bases at a third of its length (the query then needs an insertion
+    gap, the F recurrence, often across a strip's edge), 2 a copy that gained
+    some (E), 3 a copy of the first third only."""
+    import numpy as np
+    L = len(q)
+    t = rng.integers(0, 4, n_t)
+    if kind == 0:
+        src = q
+    elif kind == 1:
+        g = int(rng.integers(1, 7))
+        src = np.concatenate([q[:L // 3], q[L // 3 + g:]])
+    elif kind == 2:
+        g = int(rng.integers(1, 5))
+        src = np.concatenate([q[:L // 2], rng.integers(0, 4, g), q[L // 2:]])
+    else:
+        src = q[:L // 3]
+    n = min(len(src), n_t)
+    t[:n] = src[:n]
+    return t
+
+
+def _low_complexity(rng, n, period):
+    """n bases of a repeat of `period` letters: rows full of equal scores,
+    so ties for the row maximum fall on neighbouring columns and strips."""
+    import numpy as np
+    unit = rng.integers(0, 4, period)
+    return np.resize(unit, n)
+
+
+def extend_edge_case(seed, B, Lq, Lt, w_val=100):
+    """K1 lanes, by lane number modulo 8: 0 a full match with qlen = Lq (the
+    gscore at the tail) and a target longer than Lt; 1 a homopolymer against
+    itself, 2 a dinucleotide repeat (ties); 3 a target that lost bases (F
+    across strips); 4 one that gained bases (E); 5 random (dies in the first
+    rows); 6 a match of the first third, then garbage; 7 a query of 1-3
+    bases. Then single lanes: an empty query (the band is collapsed on the
+    first row), an empty target, w = 0, a large h0 (the first row's decay
+    and h1_first live long). Some N (code 4) everywhere. Returns the numpy
+    inputs of sw_extend_batch without the scores:
+    (query, qlens, target, tlens, mats, matsel, w, bonus, h0)."""
+    import numpy as np
+    from biscuit_tpu_torch.config import MemOpt
+    opt = MemOpt()
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
+    qlens = rng.integers(max(Lq // 2, 1), Lq + 1, B).astype(np.int32)
+    tlens = rng.integers(max(Lt // 2, 1), Lt + 1, B).astype(np.int32)
+    h0 = rng.integers(1, 60, B).astype(np.int32)
+    for b in range(B):
+        k = b % 8
+        if k == 0:
+            qlens[b], tlens[b] = Lq, Lt + 7
+            t[b] = _planted(rng, q[b], Lt, 0)
+        elif k in (1, 2):
+            q[b] = _low_complexity(rng, Lq, k)
+            t[b] = np.resize(q[b], Lt)
+        elif k in (3, 4):
+            t[b] = _planted(rng, q[b, :qlens[b]], Lt, k - 2)
+        elif k == 6:
+            t[b] = _planted(rng, q[b, :qlens[b]], Lt, 3)
+        elif k == 7:
+            qlens[b] = rng.integers(1, 4)
+            t[b, :qlens[b]] = q[b, :qlens[b]]
+    q[rng.random((B, Lq)) < 0.01] = 4
+    t[rng.random((B, Lt)) < 0.01] = 4
+    w = np.full(B, w_val, np.int32)
+    for b, what in ((8, "q0"), (11, "t0"), (12, "w0"), (16, "h0")):
+        if b < B:
+            if what == "q0":
+                qlens[b] = 0
+            elif what == "t0":
+                tlens[b] = 0
+            elif what == "w0":
+                w[b] = 0
+            else:
+                h0[b] = 200
+    bonus = np.where(rng.random(B) < 0.5, opt.pen_clip5, 0)
+    msel = rng.integers(0, 2, B)
+    mats = np.stack([opt.gamat, opt.ctmat])
+    return tuple(a.astype(np.int32) for a in
+                 (q, qlens, t, tlens, mats, msel, w, bonus, h0))
+
+
+def local_edge_case(seed, B, Lq, Lt, a=1, b_pen=2):
+    """K7 lanes (Lq a multiple of 16), by lane number modulo 6: 0 a copy of
+    the query in the target; 1 a homopolymer, 2 a dinucleotide repeat (ties
+    for the row maximum and for qe across strips); 3 a target that lost
+    bases (F across strips); 4 random; 5 repeats of the query (u8 lanes
+    saturate at a = 4). qlens straddle the stripes: 16 k, 16 k + 1, 8 k + 1,
+    so that `ext` and the pad columns cut through strips; single lanes with
+    an empty query, an empty target, qlen = Lq, qlen = 1; u8 and i16 mixed;
+    a third of the lanes stop on a small endsc. Matrices as
+    tests/test_sw_local.py makes them, match a, mismatch -b_pen. Returns
+    (query, qlens, target, tlens, mats, matsel), (minsc, endsc, u8)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q = np.full((B, Lq), 4, np.int32)
+    t = np.full((B, Lt), 4, np.int32)
+    qlens = rng.integers(1, Lq + 1, B).astype(np.int32)
+    tlens = rng.integers(max(Lt // 2, 1), Lt + 1, B).astype(np.int32)
+    for b in range(B):
+        r = b % 4
+        if r == 0:
+            qlens[b] = min(Lq, max(16, qlens[b] // 16 * 16))
+        elif r == 1:
+            qlens[b] = min(Lq, qlens[b] // 16 * 16 + 1)
+        elif r == 2:
+            qlens[b] = min(Lq, qlens[b] // 8 * 8 + 1)
+    for b, n in ((4, 0), (7, Lq), (10, 1)):
+        if b < B:
+            qlens[b] = n
+    if 9 < B:
+        tlens[9] = 0
+    for b in range(B):
+        ql, tl = int(qlens[b]), int(tlens[b])
+        k = b % 6
+        qq = _low_complexity(rng, ql, k) if k in (1, 2) else \
+            rng.integers(0, 4, ql)
+        tt = rng.integers(0, 4, tl)
+        if ql and tl:
+            off = int(rng.integers(0, max(1, tl - ql)))
+            if k in (0, 1, 2):
+                src = np.resize(qq, tl - off) if k else qq
+            elif k == 3:
+                src = _planted(rng, qq, max(ql - 8, 1), 1)
+            elif k == 5:
+                src = np.resize(qq, tl - off)
+            else:
+                src = tt[:0]
+            n = min(len(src), tl - off)
+            tt[off:off + n] = src[:n]
+            nm = int(rng.integers(0, 1 + tl // 16))
+            tt[rng.integers(0, tl, nm)] = rng.integers(0, 4, nm)
+        q[b, :ql] = qq
+        t[b, :tl] = tt
+    m = np.zeros((2, 5, 5), np.int32)
+    m[:, :4, :4] = -b_pen
+    for i in range(4):
+        m[:, i, i] = a
+    m[1] = m[0].T
+    m[1, 0, 1] = a
+    matsel = rng.integers(0, 2, B).astype(np.int32)
+    u8 = rng.integers(0, 2, B).astype(np.int32)
+    minsc = rng.integers(10, 60, B).astype(np.int32)
+    endsc = np.where(rng.random(B) < 0.33, rng.integers(5, 80, B),
+                     0x10000).astype(np.int32)
+    return (q, qlens, t, tlens, m, matsel), (minsc, endsc, u8)
