@@ -17,9 +17,9 @@ Batch flow per call:
      lane at -v4, run the host chain.mem_chain. Then host chain filtering
   5. device: banded extension (ops/sw_extend, K1), scheduled in rounds
      across lanes
-  6. device: global alignment + traceback for every region SAM will print
-     (ops/sw_global, K2); lanes whose traceback overflows max_ops are
-     realigned by the scalar sw.sw_global
+  6. device: global alignment + traceback for every region SAM will print,
+     one launch a chunk (ops/sw_global.sw_global_cigar, K2); lanes whose
+     traceback overflows max_ops are realigned by the scalar sw.sw_global
   7. PE only, over the whole chunk: host insert-size statistics (pestat),
      then batched mate rescue (region.matesw_batch), every candidate's
      ksw_align2 in one forward and one reverse call of K7
@@ -27,7 +27,9 @@ Batch flow per call:
   8. host: region merge, primary marking, pairing, SAM
 
 Every op runs on `device`: CUDA launches the kernels, the CPU runs their
-plain torch versions.
+plain torch versions. The three DP kernels (K1, K7, K2) take a query of
+any width the engine meets: past the widest compiled strip they run their
+wide instance, on the card like the others.
 """
 import os
 import time
@@ -42,7 +44,7 @@ from ..align.io_helpers import read_clipping
 
 from ..ops.seed_batch import FMPair, collect_intv_batch, sa_batch
 from ..ops.sw_extend import sw_extend_batch
-from ..ops.sw_global import decode_cigars, global_traceback, sw_global_batch
+from ..ops.sw_global import decode_cigars, sw_global_cigar
 from ..ops.sw_local import sw_align_batch
 from . import sam as sammod
 from . import trace
@@ -288,11 +290,9 @@ class DeviceAligner:
             ws[i] = w
             msel[i] = 1 if parent else 0
         T = self._tensor
-        qlens_t, tlens_t, ws_t = T(qlens), T(tlens), T(ws)
-        score, z = sw_global_batch(T(q), qlens_t, T(t), tlens_t,
-                                   self._mats(opt), T(msel), opt.o_del,
-                                   opt.e_del, opt.o_ins, opt.e_ins, ws_t)
-        ops, n_ops, ov = global_traceback(z, qlens_t, tlens_t, ws_t)
+        score, ops, n_ops, ov = sw_global_cigar(
+            T(q), T(qlens), T(t), T(tlens), self._mats(opt), T(msel),
+            opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, T(ws))
         scores = score.cpu().numpy()
         ovh = ov.cpu().numpy()
         # an overflowed lane's op buffer is incomplete (n_ops > max_ops):

@@ -759,7 +759,35 @@ Not ported yet: {", ".join(NOT_PORTED)}
         print(f"[biscuit_tpu_torch] '{argv[0]}' is not ported yet",
               file=sys.stderr)
         return 1
-    return cmd(argv[1:])
+    try:
+        ret = cmd(argv[1:])
+        if ret in (0, None):
+            # end-of-run summary like the reference main (src/main.c:152-157),
+            # anchored at PROCESS start (covers interpreter + torch imports)
+            t = os.times()
+            try:
+                with open("/proc/self/stat") as f:
+                    start_ticks = int(f.read().rsplit(") ", 1)[1].split()[19])
+                with open("/proc/uptime") as f:
+                    up = float(f.read().split()[0])
+                real = up - start_ticks / os.sysconf("SC_CLK_TCK")
+            except OSError:
+                real = t.elapsed
+            print(f"[main] Version: {__version__}", file=sys.stderr)
+            print("[main] CMD: biscuit_tpu_torch " + " ".join(argv),
+                  file=sys.stderr)
+            print(f"[main] Real time: {real:.3f} sec; "
+                  f"CPU: {t.user + t.system + t.children_user + t.children_system:.3f} sec",
+                  file=sys.stderr)
+        return ret
+    except BrokenPipeError:
+        # downstream consumer (e.g. `| head`) closed the pipe: exit quietly
+        # like the reference's EPIPE handling
+        try:
+            sys.stdout.close()
+        except Exception:
+            pass
+        os._exit(1)
 
 
 if __name__ == "__main__":

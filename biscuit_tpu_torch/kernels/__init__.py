@@ -2,7 +2,8 @@
 
 Each `kernels/<name>.cu` is compiled on first use with nvcc for sm_90a into
 a shared library with a plain C interface, cached under `kernels/_build/`
-by a hash of the source and the flags (a changed source gets a new file),
+by a hash of the source, the headers beside it and the flags (a changed
+source gets a new file),
 and loaded with ctypes. No PyTorch headers are compiled, so a build takes
 seconds, and no ninja is needed.
 
@@ -12,6 +13,7 @@ A build or launch failure is raised, never answered with the plain torch
 version: the plain version runs only for tensors on the CPU.
 """
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -62,7 +64,7 @@ def _nvcc() -> str:
 def kernel_label(mangled: str) -> str:
     """`sw_extend_kernel<5>` from the mangled name ptxas prints: the last of
     its nested length-prefixed identifiers, with its template arguments
-    where they are int or long types or integer literals."""
+    where they are int or long types or integer or bool literals."""
     m = re.match(r"_ZN?", mangled)
     label, rest = None, mangled[m.end():] if m else ""
     while True:  # nested names, each prefixed with its length
@@ -73,10 +75,11 @@ def kernel_label(mangled: str) -> str:
         rest = rest[m.end() + int(m.group()):]
     if label is None:
         return mangled
-    t = re.match(r"I((?:[il]|Li\d+E)+)E", rest)
+    t = re.match(r"I((?:[il]|L[ib]\d+E)+)E", rest)
     if t:
-        args = [{"i": "int", "l": "long"}.get(a, a[2:-1])
-                for a in re.findall(r"[il]|Li\d+E", t.group(1))]
+        args = [{"i": "int", "l": "long", "Lb0E": "false",
+                 "Lb1E": "true"}.get(a, a[2:-1])
+                for a in re.findall(r"[il]|L[ib]\d+E", t.group(1))]
         label += "<" + ", ".join(args) + ">"
     return label
 
@@ -109,8 +112,11 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = os.path.join(_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and the headers beside it, which any source may include
+    for path in [src] + sorted(glob.glob(os.path.join(_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)

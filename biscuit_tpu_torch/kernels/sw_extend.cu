@@ -23,7 +23,11 @@
 //    [l * C, l * C + C) of the H and E rows in registers for the whole run
 //    (C is a template parameter, 32 * C >= Lq). Nothing of the DP state is
 //    ever in device memory. The diagonal value a strip needs from its left
-//    neighbour crosses by one __shfl_up_sync a row;
+//    neighbour crosses by one __shfl_up_sync a row. A query wider than the
+//    widest C runs the wide instance (C = 0, strip.cuh): the same rows with
+//    the strips in shared memory, ceil(Lq / 32) columns a thread, a warp a
+//    block; the scores then come from the lane's matrix and the strip's
+//    query codes, both in shared memory;
 //  * the scores of the strip against each of the five target letters (the
 //    query profile) are laid out once in shared memory, so a cell's score is
 //    one conflict-free load; the target's bases are read 32 rows at a time,
@@ -54,30 +58,14 @@
 //  * the row maximum's column is the rightmost one that holds it, and when
 //    the maximum is 0 the rightmost column of the padded row (Lq - 1, the
 //    width of the call, not of the strips).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "strip.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;  // lanes of the batch a block (a warp each)
-constexpr unsigned FULL = 0xffffffffu;
-
-// a sequence code (0..4; anything larger counts as 4) from a uint8 or an
-// int32 array, as the caller has it
-__device__ __forceinline__ int load_code(const void* p, size_t idx,
-                                         int code_bytes) {
-  const unsigned c = code_bytes == 4 ? (unsigned)((const int32_t*)p)[idx]
-                                     : (unsigned)((const uint8_t*)p)[idx];
-  return (int)min(c, 4u);
-}
-
-// the bases of target rows i0 .. i0 + 31 of one lane, one a thread (4 past
-// the lane's last row)
-__device__ __forceinline__ int load_tile(const void* target, size_t row0,
-                                         int i0, int lane, int n_rows,
-                                         int code_bytes) {
-  const int r = i0 + lane;
-  return r < n_rows ? load_code(target, row0 + r, code_bytes) : 4;
+// words of work memory a lane of the wide instance: h, e, M and the query
+// codes of the row
+__host__ __device__ constexpr int64_t wide_words(int Lq) {
+  return 4 * 32 * (int64_t)wide_cols(Lq);
 }
 
 template <int C>
@@ -85,37 +73,53 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
     const void* __restrict__ query, const void* __restrict__ target,
     const int32_t* __restrict__ matb, const int32_t* __restrict__ qlens,
     const int32_t* __restrict__ tlens, const int32_t* __restrict__ wv,
-    const int32_t* __restrict__ h0v, int32_t* __restrict__ out, int B, int Lq,
-    int Lt, int code_bytes, int o_del, int e_del, int o_ins, int e_ins,
-    int zdrop) {
-  __shared__ int32_t prof[WARPS][5][C][32];  // [target letter][k][thread]
+    const int32_t* __restrict__ h0v, int32_t* scratch,
+    int32_t* __restrict__ out, int B, int Lq, int Lt, int code_bytes,
+    int o_del, int e_del, int o_ins, int e_ins, int zdrop) {
+  // [target letter][k][thread]; the wide instance has none
+  __shared__ int32_t prof[WARPS][5][C ? C : 1][32];
   __shared__ int32_t smat[WARPS][32];
+  extern __shared__ int32_t dyn[];
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + wid;
+  const int b = C ? blockIdx.x * WARPS + wid : blockIdx.x;
   if (b >= B) return;  // a whole warp; the kernel has no block-wide barrier
+  const int Cn = C ? C : wide_cols(Lq);  // columns a thread
+  // the wide instance's work memory: the block's, or the lane's of `scratch`
+  int32_t* mem = scratch ? scratch + (size_t)b * wide_words(Lq) : dyn;
+  int32_t* qcode = mem + (size_t)3 * 32 * Cn + lane;  // [k][thread]
   const size_t sB = (size_t)B;
   const int qlen = qlens[b], tlen = tlens[b], w = wv[b], h0 = h0v[b];
   const int oe_del = o_del + e_del, oe_ins = o_ins + e_ins;
-  const int c0 = lane * C;  // the strip's first column
+  const int c0 = lane * Cn;  // the strip's first column
   const int n_rows = min(tlen, Lt);
 
   // the lane's matrix, then the strip's profile
   if (lane < 25) smat[wid][lane] = matb[(size_t)b * 25 + lane];
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
+  for (int k = 0; k < Cn; ++k) {
     const int j = c0 + k;
     const int qc = j < Lq ? load_code(query, (size_t)b * Lq + j, code_bytes) : 4;
+    if constexpr (C != 0) {
 #pragma unroll
-    for (int tc = 0; tc < 5; ++tc) prof[wid][tc][k][lane] = smat[wid][tc * 5 + qc];
+      for (int tc = 0; tc < 5; ++tc)
+        prof[wid][tc][k][lane] = smat[wid][tc * 5 + qc];
+    } else {
+      qcode[k * 32] = qc;
+    }
   }
+  // the score of column c0 + k against target letter tb
+  auto sc = [&](int tb, int k) -> int {
+    if constexpr (C != 0) return prof[wid][tb][k][lane];
+    else return smat[wid][tb * 5 + qcode[k * 32]];
+  };
 
   // first row (ksw.c:395-397): hh[k] is h[c0 + k], the diagonal of column
   // c0 + k; ee[k] is e[c0 + k]
-  int hh[C], ee[C];
+  Strip<C> hh(mem, 0, Cn, lane), ee(mem, 1, Cn, lane), M(mem, 2, Cn, lane);
   const int h1v = max(h0 - oe_ins, 0);
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
+  for (int k = 0; k < Cn; ++k) {
     const int j = c0 + k;
     hh[k] = j == 0 ? h0 : j <= qlen ? max(h1v - (j - 1) * e_ins, 0) : 0;
     ee[k] = 0;
@@ -149,14 +153,13 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
 
     // pass 1 over the strip: M, the band's mask on E, and the strip's own
     // carry g = F at the column after the strip if nothing came from the left
-    int M[C];
     int g = 0;
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
+    for (int k = 0; k < Cn; ++k) {
       const int j = c0 + k;
       const bool inb = j >= beg_i && j < end_i;
       const int hd = hh[k];
-      const int m = inb && hd != 0 ? hd + prof[wid][tb][k][lane] : 0;
+      const int m = inb && hd != 0 ? hd + sc(tb, k) : 0;
       M[k] = m;
       ee[k] = inb ? ee[k] : 0;
       g = max(g - e_ins, max(m - oe_ins, 0));
@@ -167,7 +170,7 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int u = __shfl_up_sync(FULL, v, d);
-      if (lane >= d) v = max(v, u - d * C * e_ins);
+      if (lane >= d) v = max(v, u - d * Cn * e_ins);
     }
     int f = __shfl_up_sync(FULL, v, 1);  // F at this strip's first column
     if (lane == 0) f = 0;
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
     // pass 2: H, the next row's E, and the strip's share of the reductions
     int lm = 0, lj = -1, lnz = -1, hl = 0, hprev = 0;
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
+    for (int k = 0; k < Cn; ++k) {
       const int j = c0 + k;
       const bool inb = j >= beg_i && j < end_i;
       const int m = M[k], E = ee[k];
@@ -196,7 +199,7 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
     const int up = __shfl_up_sync(FULL, hprev, 1);
     hh[0] = lane == 0 ? 0 : up;
 #pragma unroll
-    for (int k = 0; k < C; ++k)
+    for (int k = 0; k < Cn; ++k)
       if (c0 + k == beg_i) hh[k] = h1_first;
 
     const int m_val = __reduce_max_sync(FULL, lm);
@@ -240,60 +243,84 @@ __global__ void __launch_bounds__(WARPS * 32) sw_extend_kernel(
 template <int C>
 int launch(const void* query, const void* target, const void* matb,
            const void* qlens, const void* tlens, const void* w,
-           const void* h0, void* out, int B, int Lq, int Lt, int code_bytes,
-           int o_del, int e_del, int o_ins, int e_ins, int zdrop,
-           void* stream) {
-  const int blocks = (B + WARPS - 1) / WARPS;
-  sw_extend_kernel<C><<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+           const void* h0, void* scratch, void* out, int B, int Lq, int Lt,
+           int code_bytes, int o_del, int e_del, int o_ins, int e_ins,
+           int zdrop, void* stream) {
+  int64_t shared = 0;
+  if (C == 0) {
+    shared = wide_shared_bytes(wide_words(Lq));
+    static int64_t raised = 48 * 1024;
+    if (shared == 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    if (const int rc = raise_shared(sw_extend_kernel<C>, shared, raised))
+      return rc;
+  }
+  sw_extend_kernel<C><<<Shape<C>::blocks(B), Shape<C>::threads, (size_t)shared,
+                        (cudaStream_t)stream>>>(
       query, target, (const int32_t*)matb, (const int32_t*)qlens,
       (const int32_t*)tlens, (const int32_t*)w, (const int32_t*)h0,
-      (int32_t*)out, B, Lq, Lt, code_bytes, o_del, e_del, o_ins, e_ins,
-      zdrop);
+      C == 0 && shared == 0 ? (int32_t*)scratch : nullptr, (int32_t*)out, B,
+      Lq, Lt, code_bytes, o_del, e_del, o_ins, e_ins, zdrop);
   return (int)cudaGetLastError();
 }
 
 template <int C>
-int resident(void) {
+int resident(int Lq) {
+  const int64_t shared = C ? 0 : wide_shared_bytes(wide_words(Lq));
+  int64_t raised = 48 * 1024;
   int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sw_extend_kernel<C>, WARPS * 32, 0) != cudaSuccess)
+  if (raise_shared(sw_extend_kernel<C>, shared, raised) != 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, sw_extend_kernel<C>, Shape<C>::threads, (size_t)shared) !=
+          cudaSuccess)
     return -1;
-  return blocks * WARPS;
+  return blocks * Shape<C>::threads / 32;
 }
 
 }  // namespace
 
 // every instance of the strip width C; the wrapper picks the smallest with
-// 32 * C >= Lq (ops/strip_scan.py keeps the same list)
+// 32 * C >= Lq (ops/strip_scan.py keeps the same list), and the wide
+// instance, C = 0, for a query wider than them all
 #define FOR_EACH_C(X) X(2) X(4) X(5) X(6) X(8) X(12) X(16)
 
+// `scratch` is read only by the wide instance, and only when
+// sw_extend_scratch_words says a lane's row needs device memory: then it
+// holds that many words a lane
 extern "C" int sw_extend(const void* query, const void* target,
                          const void* matb, const void* qlens,
                          const void* tlens, const void* w, const void* h0,
-                         void* out, int B, int Lq, int Lt, int code_bytes,
-                         int C, int o_del, int e_del, int o_ins, int e_ins,
-                         int zdrop, void* stream) {
-  if (Lq > 32 * C || (code_bytes != 1 && code_bytes != 4))
+                         void* scratch, void* out, int B, int Lq, int Lt,
+                         int code_bytes, int C, int o_del, int e_del,
+                         int o_ins, int e_ins, int zdrop, void* stream) {
+  if ((C != 0 && Lq > 32 * C) || (code_bytes != 1 && code_bytes != 4))
     return (int)cudaErrorInvalidValue;
   switch (C) {
-#define CASE(N)                                                             \
-  case N:                                                                   \
-    return launch<N>(query, target, matb, qlens, tlens, w, h0, out, B, Lq, \
-                     Lt, code_bytes, o_del, e_del, o_ins, e_ins, zdrop,    \
-                     stream);
+#define CASE(N)                                                              \
+  case N:                                                                    \
+    return launch<N>(query, target, matb, qlens, tlens, w, h0, scratch, out, \
+                     B, Lq, Lt, code_bytes, o_del, e_del, o_ins, e_ins,      \
+                     zdrop, stream);
+    CASE(0)
     FOR_EACH_C(CASE)
 #undef CASE
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// warps (lanes of the batch) of instance C that one SM holds at once, -1 for
-// no such instance
-extern "C" int sw_extend_resident_warps(int C) {
+// device memory, in words a lane, that the wide instance needs at query
+// width Lq: 0 while a lane's row fits shared memory
+extern "C" int64_t sw_extend_scratch_words(int Lq) {
+  return wide_shared_bytes(wide_words(Lq)) ? 0 : wide_words(Lq);
+}
+
+// warps (lanes of the batch) of instance C that one SM holds at once (of
+// the wide instance, C = 0, at query width Lq), -1 for no such instance
+extern "C" int sw_extend_resident_warps(int C, int Lq) {
   switch (C) {
 #define CASE(N) \
   case N:       \
-    return resident<N>();
+    return resident<N>(Lq);
+    CASE(0)
     FOR_EACH_C(CASE)
 #undef CASE
   }

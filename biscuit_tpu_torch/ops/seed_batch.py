@@ -227,6 +227,64 @@ def _extend(fm: FMPair, which, x_q, x_o, s):
     return new_xq, torch.stack([b0, b1, b2, b3], 1), sizes
 
 
+def occ_class_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor):
+    """What an extension by class c needs of occ4, as a thread of K3
+    computes it, for [n] ranks and every c: eq [n, 4], the count of class c
+    in bwt[0..k], and gt [n, 4], the count of the classes above c. Each of
+    the row's four BWT words (16 bases, from the top bits down) is cut behind
+    the rank's base by a shift out and back in; a base of class c has both
+    bits 0 after an xor with c in every base; the bases above c are hi | lo,
+    hi, hi & lo or none; the cut-off bases read as A and are taken off class
+    0 again; the row's counts give class c and the sum above it; the edges
+    (k < 0, k == seq_len) replace the result. Used by no caller on the main
+    path."""
+    W = fm.tab.shape[-1]
+    which, k = which.long(), k.long()
+    ksafe = k.clamp(0, fm.seq_len - 1)
+    kk = ksafe - (ksafe >= fm.primary[which]).long()
+    row = fm.tab[which, kk >> 6].long() & _M32
+    pos = kk & 63
+    cnt = [row[:, c] | (row[:, 4 + c] << 32) if fm.wide else row[:, c]
+           for c in range(4)]
+    L2 = fm.L2[which]
+    eq, gt = [], []
+    for c in range(4):
+        pat = _M55 * c
+        m2 = _M32 if c == 0 else 0
+        m3 = _M32 if c <= 1 else 0
+        m45 = 0 if c == 3 else _M55
+        n_eq = torch.zeros_like(kk)
+        n_gt = torch.zeros_like(kk)
+        for q in range(4):
+            sh = (32 * q + 30 - 2 * pos).clamp(0, 32)
+            wm = ((row[:, W - 4 + q] >> sh) << sh) & _M32
+            x = wm ^ pat
+            n_eq = n_eq + _popcount32(~(x | (x >> 1)) & _M55)
+            n_gt = n_gt + _popcount32(((wm >> 1) | (wm & m2)) & (wm | m3) & m45)
+        if c == 0:
+            n_eq = n_eq - (63 - pos)
+        e = cnt[c] + n_eq
+        g = sum(cnt[c + 1:], torch.zeros_like(kk)) + n_gt
+        full = k == fm.seq_len
+        e = torch.where(full, L2[:, c + 1] - L2[:, c], e)
+        g = torch.where(full, L2[:, 4] - L2[:, c + 1], g)
+        eq.append(torch.where(k < 0, 0, e))
+        gt.append(torch.where(k < 0, 0, g))
+    return torch.stack(eq, 1).to(fm.rdt), torch.stack(gt, 1).to(fm.rdt)
+
+
+def rank_order(start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """The place of each of a lane's n rows in its stable sort by
+    (start, end), as K3's threads find it: the rows with a smaller key, and
+    those with an equal key and a smaller index. [n] int64, a permutation.
+    Used by no caller on the main path."""
+    s, e = start[:, None], end[:, None]
+    idx = torch.arange(start.numel(), device=start.device)
+    before = (start < s) | ((start == s) & ((end < e) | (
+        (end == e) & (idx[None, :] < idx[:, None]))))
+    return before.sum(1)
+
+
 def occ4_sel_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """JAX occ4_sel: which [n] strand ids, k [n] ranks -> [n, 4] counts of
     the rank dtype."""
@@ -527,8 +585,50 @@ _SEED_SIG = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
 
 
 def _seed_lib():
-    return kernels.load("smem_seed", {"smem_seed_narrow": _SEED_SIG,
-                                      "smem_seed_wide": _SEED_SIG})
+    lib = kernels.load("smem_seed", {"smem_seed_narrow": _SEED_SIG,
+                                     "smem_seed_wide": _SEED_SIG})
+    for fn in (lib.smem_seed_scratch_bytes, lib.smem_seed_lane_bytes):
+        fn.argtypes = [ctypes.c_int] * 3  # (L, S, wide)
+        fn.restype = ctypes.c_int64
+    return lib
+
+
+def seed_resident_warps(L: int, wide: bool, S: int = SEED_CAP):
+    """(warps, i.e. lanes of the batch, of K3 that one SM holds at once at
+    read length L, from the CUDA occupancy calculator; bytes of shared
+    memory a lane's interval lists take there)."""
+    lib = _seed_lib()
+    return (int(lib.smem_seed_resident_warps(L, S, int(wide))),
+            int(lib.smem_seed_lane_bytes(L, S, int(wide))))
+
+
+def _launch_seed(fm: FMPair, reads, lens, parents, params, S: int):
+    """Launch K3 on prepared inputs (int32, contiguous, on fm's device):
+    (rows [B, S, 5] of the rank dtype, n [B] int32, ov [B] bool). No host
+    sync. The interval lists live in shared memory; only a read so long
+    that one lane's lists exceed an SM's shared memory gets device memory
+    for them."""
+    dev = kernels.check_cuda(fm.tab, reads, lens, parents)
+    B, L = reads.shape
+    kernels.check_lanes(B, lens, parents)
+    rows = torch.empty((B, S, 5), dtype=fm.rdt, device=dev)
+    n = torch.empty(B, dtype=torch.int32, device=dev)
+    ov = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return rows, n, ov
+    lib = _seed_lib()
+    per_lane = int(lib.smem_seed_scratch_bytes(L, S, int(fm.wide)))
+    scratch = (torch.empty((B, per_lane), dtype=torch.uint8, device=dev)
+               if per_lane else None)
+    fn = "smem_seed_wide" if fm.wide else "smem_seed_narrow"
+    kernels.launch(lib, fn, "smem_seed", dev,
+                   kernels.ptr(fm.tab), kernels.ptr(fm.L2),
+                   kernels.ptr(fm.primary), fm.tab.shape[1], fm.seq_len,
+                   kernels.ptr(reads), kernels.ptr(lens), kernels.ptr(parents),
+                   B, L, *params, S,
+                   kernels.ptr(scratch) if per_lane else None,
+                   kernels.ptr(rows), kernels.ptr(n), kernels.ptr(ov))
+    return rows, n, ov
 
 
 def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
@@ -540,36 +640,25 @@ def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
     int32, rows [M, 5] of the rank dtype (start, end, x0, x1, size),
     overflow [B] bool), ordered by lane, start, end. A lane is flagged iff
     smem.collect_intv gives it more than S rows; a flagged lane has no
-    rows. K3 on CUDA (one thread per lane), the plain machine on the CPU."""
+    rows. K3 on CUDA (a warp per lane, a thread an extension), the plain
+    machine on the CPU."""
     if kernels.route(reads) == "plain":
         return collect_intv_flat_plain(fm, reads, lens, parents, opt, S)
     reads = reads.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     parents = parents.to(torch.int32).contiguous()
-    dev = kernels.check_cuda(fm.tab, reads, lens, parents)
     B, L = reads.shape
     kernels.check_lanes(B, lens, parents)
     # the kernel reads reads[b, :lens[b]] and the strand tables of parents[b]
     if bool(((lens < 0) | (lens > L) | ((parents & ~1) != 0)).any()):
         raise ValueError("lens must lie in [0, L] and parents in {0, 1}")
-    rows = torch.empty((B, S, 5), dtype=fm.rdt, device=dev)
-    n = torch.empty(B, dtype=torch.int32, device=dev)
-    ov = torch.empty(B, dtype=torch.bool, device=dev)
+    rows, n, ov = _launch_seed(fm, reads, lens, parents, seed_params(opt), S)
     if B == 0:
         return n, rows.reshape(0, 5), ov
-    scratch = torch.empty((B, 2, L + 1, 4), dtype=fm.rdt, device=dev)
-    msl, split_len, split_width, max_intv, start_width = seed_params(opt)
-    fn = "smem_seed_wide" if fm.wide else "smem_seed_narrow"
-    kernels.launch(_seed_lib(), fn, "smem_seed", dev,
-                   kernels.ptr(fm.tab), kernels.ptr(fm.L2),
-                   kernels.ptr(fm.primary), fm.tab.shape[1], fm.seq_len,
-                   kernels.ptr(reads), kernels.ptr(lens), kernels.ptr(parents),
-                   B, L, msl, split_len, split_width, max_intv, start_width, S,
-                   kernels.ptr(scratch), kernels.ptr(rows), kernels.ptr(n),
-                   kernels.ptr(ov))
     n = n.long()
-    keep = torch.arange(S, device=dev)[None, :] < n[:, None]
-    lane_of = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(n)
+    keep = torch.arange(S, device=reads.device)[None, :] < n[:, None]
+    lane_of = torch.arange(B, dtype=torch.int32,
+                           device=reads.device).repeat_interleave(n)
     return lane_of, rows[keep], ov
 
 

@@ -9,7 +9,7 @@ The band clamp (ksw.c:399-407) runs here for both paths, with the JAX
 wrapper's float32 division truncated to int32. Then a CUDA tensor goes to
 K1 (kernels/sw_extend.cu: a warp per lane, the DP row in registers in
 strips of C columns a thread, F by a warp scan; the instance of C is picked
-from Lq, and an Lq no instance takes raises) and a CPU tensor to
+from Lq, the wide instance past the widest C) and a CPU tensor to
 `sw_extend_batch_plain`, a row loop vectorized over lanes that follows
 `_sw_kernel` step by step.
 """
@@ -151,19 +151,22 @@ def f_row_strips(M, beg, end, oe_ins: int, e_ins: int, C: int):
     return torch.where(jm, strip_scan.f_row_strips(tF, e_ins, C), zero)
 
 
-# (query, target, mat_b, qlens, tlens, w, h0, out,
+# (query, target, mat_b, qlens, tlens, w, h0, scratch, out,
 #  B, Lq, Lt, code_bytes, C, o_del, e_del, o_ins, e_ins, zdrop)
-_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+_SIG = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
 
 
 def _lib():
-    return kernels.load("sw_extend", {"sw_extend": _SIG})
+    lib = kernels.load("sw_extend", {"sw_extend": _SIG})
+    lib.sw_extend_scratch_words.restype = ctypes.c_int64
+    return lib
 
 
-def resident_warps(C: int) -> int:
+def resident_warps(C: int, Lq: int = 0) -> int:
     """Warps (lanes of the batch) of K1's instance C that one SM holds at
-    once, from the CUDA occupancy calculator."""
-    return int(_lib().sw_extend_resident_warps(C))
+    once (of the wide instance, C = 0, at query width Lq), from the CUDA
+    occupancy calculator."""
+    return int(_lib().sw_extend_resident_warps(C, Lq))
 
 
 def _launch(query, qlens, target, tlens, mat_b, w, h0, o_del: int,
@@ -179,10 +182,13 @@ def _launch(query, qlens, target, tlens, mat_b, w, h0, o_del: int,
     kernels.check_lanes(B, qlens, tlens, w, h0)
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
     if B:
+        scratch = strip_scan.wide_scratch(_lib(), "sw_extend_scratch_words",
+                                          C, B, Lq, dev)
         kernels.launch(_lib(), "sw_extend", "sw_extend", dev,
                        kernels.ptr(query), kernels.ptr(target),
                        kernels.ptr(mat_b), kernels.ptr(qlens),
                        kernels.ptr(tlens), kernels.ptr(w), kernels.ptr(h0),
+                       kernels.ptr(scratch) if scratch is not None else None,
                        kernels.ptr(out), B, Lq, Lt, query.element_size(), C,
                        o_del, e_del, o_ins, e_ins, zdrop)
     return out

@@ -3,8 +3,8 @@
 Port of biscuit_tpu/ops/sw_local.py. `sw_local_batch` is K7, the XLA
 function `sw_local_kernel`: a CUDA tensor goes to kernels/sw_local.cu (a
 warp per lane, the DP row in registers in strips of C columns a thread, F
-by a warp scan; the instance of C is picked from Lq, and an Lq no instance
-takes raises) and a CPU tensor to `sw_local_batch_plain`, a row loop
+by a warp scan; the instance of C is picked from Lq, the wide instance past
+the widest C) and a CPU tensor to `sw_local_batch_plain`, a row loop
 vectorized over lanes that follows `sw_local_kernel` step by step. Both
 return gmax, te, qe, shift, sat ([B] int32) and the per-row maxima
 imax_rows ([Lt, B] int32), from which the host (`local_post`, copied
@@ -112,19 +112,22 @@ def f_row_strips(H1, ext, oe_ins: int, e_ins: int, C: int):
     return torch.where(inb, strip_scan.f_row_strips(tF, e_ins, C), zero)
 
 
-# (query, target, mat_b, qlens, tlens, endsc, u8, out, rows,
+# (query, target, mat_b, qlens, tlens, endsc, u8, scratch, out, rows,
 #  B, Lq, Lt, code_bytes, C, o_del, e_del, o_ins, e_ins)
-_SIG = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
 
 
 def _lib():
-    return kernels.load("sw_local", {"sw_local": _SIG})
+    lib = kernels.load("sw_local", {"sw_local": _SIG})
+    lib.sw_local_scratch_words.restype = ctypes.c_int64
+    return lib
 
 
-def resident_warps(C: int) -> int:
+def resident_warps(C: int, Lq: int = 0) -> int:
     """Warps (lanes of the batch) of K7's instance C that one SM holds at
-    once, from the CUDA occupancy calculator."""
-    return int(_lib().sw_local_resident_warps(C))
+    once (of the wide instance, C = 0, at query width Lq), from the CUDA
+    occupancy calculator."""
+    return int(_lib().sw_local_resident_warps(C, Lq))
 
 
 def _launch(query, qlens, target, tlens, mat_b, endsc, u8, o_del: int,
@@ -142,11 +145,15 @@ def _launch(query, qlens, target, tlens, mat_b, endsc, u8, o_del: int,
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     rows = torch.empty((Lt, B), dtype=torch.int32, device=dev)
     if B:
+        scratch = strip_scan.wide_scratch(_lib(), "sw_local_scratch_words",
+                                          C, B, Lq, dev)
         kernels.launch(_lib(), "sw_local", "sw_local", dev,
                        kernels.ptr(query), kernels.ptr(target),
                        kernels.ptr(mat_b), kernels.ptr(qlens),
                        kernels.ptr(tlens), kernels.ptr(endsc),
-                       kernels.ptr(u8), kernels.ptr(out), kernels.ptr(rows),
+                       kernels.ptr(u8),
+                       kernels.ptr(scratch) if scratch is not None else None,
+                       kernels.ptr(out), kernels.ptr(rows),
                        B, Lq, Lt, query.element_size(), C, o_del, e_del,
                        o_ins, e_ins)
     return out, rows

@@ -2,11 +2,14 @@
 """Bring-up check of the torch port (biscuit_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` of this tree
+        and of another checkout side by side on the data of phases 4 and 4b)
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
   2. build the seven CUDA sources of the align and pileup slices with nvcc,
-     in parallel
+     in parallel; registers, spills and shared memory of each kernel from
+     ptxas, warps resident an SM from the occupancy calculator
   3. each kernel against its plain torch version on the card, on
      numpy-seeded inputs or the phase-4 reads at the shapes of its path:
      exact equality (torch.equal), both times from CUDA events, the least
@@ -16,12 +19,18 @@ Phases, one line each (more for the kernel table):
      fill, early breaks taken off) and, for the count scatter-add, the time
      of the one PyTorch call
      that computes it; the seeder and the SA walk also on a 50 Mbp index
-     (tables twice the L2). The two DP kernels that give a warp a lane (K1
-     sw_extend, K7 sw_local) also run the edge lanes of
+     (tables twice the L2). The three DP kernels that give a warp a lane
+     (K1 sw_extend, K7 sw_local, K2 sw_global) also run the edge lanes of
      tests/torch_testdata.py at query widths that launch every compiled
      strip width, on uint8 and int32 codes, under e_ins of 0, 1 and 3, and
-     must refuse a query wider than any instance; their rows give the
-     launch alone beside the wrapper, K1's also at a late round's 256 lanes
+     at widths past the widest strip, which launch the wide instance with
+     its strips in shared memory and, at 16,000 columns, in device memory;
+     their rows give the launch alone beside the wrapper, K1's also at a late round's 256
+     lanes, K2's the DP, the traceback, and the two in one launch (the
+     engine's call), each held to the others. The seeder (K3) also runs
+     seeded edge lanes (N everywhere, reads of no and one base, tandem
+     repeats) under -e and under S of 3 and 1, which flag lanes, held to its
+     plain version and to the host's collect_intv
   4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
      reads (tools/make_testdata.py, plus SNPs and small indels so that
      global alignment has work), the index built in-process, then the
@@ -37,7 +46,12 @@ Phases, one line each (more for the kernel table):
      on this path, and numpy-seeded i16, saturating u8 and odd-qlen lanes,
      against its plain version. Then the same PE align once more under
      torch.profiler: the card's busy time and idle share, device time by name
-  6. the pileup slice end to end: a 400 kbp genome at 30x (80,000 directional
+  4c. queries wider than the widest compiled strip: 128 reads of 640 bp,
+     and 64 pairs of a 640 bp mate 1 and a 150 bp mate 2, through the CLI
+     on the card: K1, K2 and (PE) K7 run their wide instance, no lane is
+     redone on the host for its width, and the SAM must equal the port's
+     host engine's byte for byte
+  6. the pileup slice end to end: a 200 kbp genome at 30x (40,000 directional
      WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
      card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
      the card with the default 100,000 bp window step, so that full-size
@@ -67,9 +81,17 @@ SEED = 7
 GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
 N_PAIRS, DAMAGE_EVERY = 2048, 3  # phase 4b: pairs; every 3rd mate 2 damaged
 BIG_GENOME, BIG_CHECK = 50_000_000, 1024  # 50 Mbp: lanes held to plain
-# phase 6: 2 chromosomes of 200 kbp at 30x, so four full 100 kbp windows
-PLP_GENOME, PLP_READS = 400_000, 80_000
+# phase 3: lanes of 54 x 150 = 8100 bases for the seeder, up to 1024 rows each
+LONG_JOIN, LONG_S = 54, 1024
+# phase 6: 2 chromosomes of 100 kbp at 30x, so two full 100 kbp windows
+PLP_GENOME, PLP_READS = 200_000, 40_000
 PLP_WINDOW, PLP_DATA = 100_000, 3_000_000   # K9's shape on that path
+# phase 4c: reads wider than the DP kernels' widest strip (512 columns), SE
+# and as mate 1
+WIDE_LEN, N_WIDE, N_WIDE_PAIRS = 640, 128, 64
+# (B, Lq, Lt) past the widest strip: the wide instance of K1, K7 and K2 with
+# its strips in shared memory and, the last, in device memory
+WIDE_SHAPES = ((17, 530, 200), (6, 656, 120), (3, 16000, 40))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of
 # device memory, and 67 TFLOP/s of float32 outside the tensor cores. The
@@ -95,10 +117,12 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() from CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of fn() from CUDA events, after one warm-up (none
+    with warm=False, for a slow plain version that has just run)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -158,6 +182,16 @@ def lanes_of(fq, n_reads):
     from biscuit_tpu_torch.align.device_engine import pack_lanes
     seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:n_reads]
     return pack_lanes([(s, p) for s in seqs for p in (0, 1)])
+
+
+def trim_fastq(path, n_bases):
+    """Rewrite FASTQ `path` with every read cut to its first n_bases."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i in range(1, len(lines), 2):  # the sequence and the quality lines
+        lines[i] = lines[i][:n_bases]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def compare(name, got, want):
@@ -288,7 +322,52 @@ def main() -> int:
         return 2
     sys.path[:0] = [REPO, os.path.join(REPO, "tests")]  # + the data helper
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        if sys.argv[1:2] == ["--ab"]:
+            return align_ab(work, *sys.argv[2:])
         return smoke(work)
+
+
+def align_ab(work: str, other: str) -> int:
+    """`align` of this tree against the tree `other` (another checkout that
+    holds a `biscuit_tpu_torch/`) on the data of phases 4 and 4b, in four
+    processes one after the other: other, this, this, other. Each aligns PE
+    (cold: it builds the kernels), SE, PE, SE, PE through the CLI's `main`;
+    the seconds are those of the CLI's own `[M::mem_process_seqs] Processed
+    ... real sec` line. It checks nothing."""
+    import re
+    from torch_testdata import damage_mates, make_dataset
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "biscuit_tpu_torch")):
+        print(f"chip_smoke: no biscuit_tpu_torch in {other}", file=sys.stderr)
+        return 2
+    fa, fq, _idx = make_dataset(work, genome_size=GENOME, n_reads=N_READS,
+                                read_len=READ_LEN, seed=SEED, snp_rate=0.001,
+                                indel_every=16)
+    _fa, (fq1, fq2), _ = make_dataset(
+        os.path.join(work, "pe"), genome_size=GENOME, n_reads=N_PAIRS,
+        read_len=READ_LEN, seed=SEED, snp_rate=0.001, pe=True, index=False)
+    damage_mates(fq2, DAMAGE_EVERY)
+    card = card_line()
+    pe, se = [fa, fq1, fq2], [fa, fq]
+    code = ("import contextlib, io\n"
+            "from biscuit_tpu_torch import cli\n"
+            f"for argv in {[pe, se, pe, se, pe]!r}:\n"
+            "    with contextlib.redirect_stdout(io.StringIO()):\n"
+            "        cli.main(['align', *argv])\n")
+    for tag, tree in (("other", other), ("this", REPO), ("this", REPO),
+                      ("other", other)):
+        r = subprocess.run(
+            [sys.executable, "-c", code], cwd=tree, capture_output=True,
+            text=True, env=dict(os.environ, PYTHONPATH=tree,
+                                BISCUIT_TPU_TORCH_DEVICE="cuda"))
+        if r.returncode != 0:
+            print(tag, "failed:", r.stderr[-1500:], flush=True)
+            return 1
+        real = re.findall(r"Processed \d+ reads in [\d.]+ CPU sec, "
+                          r"([\d.]+) real sec", r.stderr)
+        say(f"[ab] {tag}: real s of PE (cold), SE, PE, SE, PE: "
+            + " ".join(real) + f" [{card}]")
+    return 0
 
 
 def smoke(work: str) -> int:
@@ -322,10 +401,19 @@ def smoke(work: str) -> int:
                 f"{st} + {ld} bytes, {smem} bytes of static shared memory")
     from biscuit_tpu_torch.ops import strip_scan
     say("[2] warps resident an SM (CUDA occupancy calculator), by strip width "
-        "C: " + json.dumps({name: {C: op.resident_warps(C)
-                                  for C in strip_scan.STRIP_WIDTHS}
+        "C (wide: the wide instance at " + f"{WIDE_LEN} columns): "
+        + json.dumps({name: {**{C: op.resident_warps(C)
+                                for C in strip_scan.STRIP_WIDTHS},
+                             "wide": op.resident_warps(strip_scan.WIDE,
+                                                       WIDE_LEN)}
                             for name, op in (("sw_extend", sw_extend),
-                                             ("sw_local", sw_local))}))
+                                             ("sw_local", sw_local),
+                                             ("sw_global", sw_global))}))
+    for wide in (False, True):
+        warps, lane_bytes = seed_batch.seed_resident_warps(READ_LEN + 2, wide)
+        say(f"[2] smem_seed {'wide' if wide else 'narrow'} at L={READ_LEN + 2}: "
+            f"{lane_bytes} bytes of shared memory a lane (its interval lists), "
+            f"{warps} warps resident an SM")
 
     # the phase-4 data come first: K4 walks the phase-4 index. The generator
     # makes no indels and few mismatches, which would leave global alignment
@@ -368,6 +456,14 @@ def smoke(work: str) -> int:
     # K1 at the engine's shapes, then the adversarial band widths
     from torch_testdata import (DP_EDGE_SHAPES, extend_edge_case,
                                 local_edge_case)
+
+    def wide_memory(scratch_words):
+        """The wide shapes cover both places a wide lane's strips lie:
+        shared memory (no device scratch) and, the last shape, device
+        memory."""
+        words = [int(scratch_words(x[1])) for x in WIDE_SHAPES]
+        if any(words[:-1]) or words[-1] <= 0:
+            raise AssertionError(f"scratch words of the wide shapes: {words}")
 
     def launched(name, fn, n=1):
         """fn() must launch kernel `name` exactly n times: a CUDA tensor
@@ -422,7 +518,7 @@ def smoke(work: str) -> int:
     # e_ins = 3 through the wrapper, and e_ins = 0 (which the band clamp
     # divides by) through the launch alone with the band as given
     k1_widths, n_edge = set(), 0
-    for shape in DP_EDGE_SHAPES:
+    for shape in DP_EDGE_SHAPES + WIDE_SHAPES:
         k1_widths.add(strip_scan.strip_width(shape[1]))
         for w_val, zdrops, scores, codes in (
                 (100, (0, 10, opt.zdrop), sc, torch.int32),
@@ -449,20 +545,11 @@ def smoke(work: str) -> int:
                     f"sw_extend edge {shape} w={w_val} zdrop={zdrop} "
                     f"scores={scores} {codes}", launched("sw_extend", k), want))
                 n_edge += 1
-    if k1_widths != set(strip_scan.STRIP_WIDTHS):
+    all_widths = {strip_scan.WIDE, *strip_scan.STRIP_WIDTHS}
+    wide_memory(sw_extend._lib().sw_extend_scratch_words)
+    if k1_widths != all_widths:
         raise AssertionError(f"sw_extend: strip widths {sorted(k1_widths)} "
-                             f"launched of {strip_scan.STRIP_WIDTHS}")
-    # a query wider than any instance raises; nothing launches, nothing
-    # falls back
-    a = [T(x) for x in extend_edge_case(1, 2, 32 * max(strip_scan.STRIP_WIDTHS)
-                                        + 1, 40)]
-    try:
-        launched("sw_extend", lambda: sw_extend.sw_extend_batch(
-            *a[:6], *sc, a[6], a[7], opt.zdrop, a[8]), n=0)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("sw_extend took a query no instance fits")
+                             f"launched of {sorted(all_widths)}")
     say(f"[3] sw_extend at a late round's shape, B=256 of those lanes: wrapper "
         f"{k1_late[0]:.4f} ms, launch alone {k1_late[1]:.4f} ms [{card}]")
     row("sw_extend", "sw_extend.cu", "biscuit_tpu/ops/pallas_sw.py:58",
@@ -470,28 +557,101 @@ def smoke(work: str) -> int:
         f"cells filled at w=100 (the whole band: {band}), longest lane "
         f"{int(filled.max())}; the wrapper {ms:.4f} ms, the launch alone "
         f"{k1_alone:.4f} ms; + {n_edge} edge cases at strip widths "
-        f"{sorted(k1_widths)}, uint8 and int32 codes, e_ins 0/1/3: equal; a "
-        f"wider query refused", moved, cells * CELL_OPS["sw_extend"])
+        f"{sorted(k1_widths)} (0: the wide instance, Lq "
+        f"{[x[1] for x in WIDE_SHAPES]}), uint8 and int32 codes, e_ins "
+        f"0/1/3: equal", moved, cells * CELL_OPS["sw_extend"])
 
-    # K2: DP and traceback
+    # K2: the DP, the traceback, and the two in one launch (what the engine
+    # calls). z comes back as a permuted view of lane-major memory.
     q, ql, t, tl, msel, w = (T(x) for x in glob_case(rng, 2048, 150, 160))
     mats = T(np.stack([opt.gamat, opt.ctmat]).astype(np.int32))
     sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
-    mat_b = mats[msel.long()].reshape(-1, 25)
+    mat_b = mats[msel.long()].reshape(-1, 25).contiguous()
     tl1, w1 = tl.clamp(min=1), w.clamp(min=1)
     kd = lambda: sw_global.sw_global_batch(q, ql, t, tl, mats, msel, *sc, w)
     pd = lambda: sw_global.sw_global_batch_plain(q, ql, t, tl1, mat_b, w1, *sc)
-    (ks, kz), (ps, pz) = kd(), pd()
+    kc = lambda: sw_global.sw_global_cigar(q, ql, t, tl, mats, msel, *sc, w)
+    (ks, kz), (ps, pz) = launched("sw_global", kd), pd()
     err = compare("sw_global", (ks, kz), (ps, pz))
-    cells = band_cells(ql, tl1, w1)
-    row("sw_global", "sw_global.cu", "biscuit_tpu/ops/pallas_global.py:133",
-        err, cuda_ms(kd, 20), cuda_ms(pd, 3),
-        f"B=2048 Lq=150 Lt=160, {cells} band cells",
-        nbytes(q, ql, t, tl, mats, msel, w, ks, kz),
-        cells * CELL_OPS["sw_global"])
+    if kz.is_contiguous() or not kz.permute(2, 0, 1).is_contiguous():
+        raise AssertionError("z is not a view of lane-major memory")
     kt = lambda: sw_global.global_traceback(kz, ql, tl, w)
     pt = lambda: sw_global.global_traceback_plain(kz, ql, tl, w)
-    err = compare("global_traceback", kt(), pt())
+    want_tb = pt()
+    err_tb = compare("global_traceback", launched("global_traceback", kt),
+                     want_tb)
+    # the fused entry: one launch, equal to the two steps and to the plain
+    # composition; and the traceback over a contiguous copy of z
+    fused = launched("sw_global", kc)
+    err = max(err, compare("sw_global_cigar", fused, (ps, *want_tb)),
+              compare("sw_global_cigar plain", fused,
+                      sw_global.sw_global_cigar_plain(q, ql, t, tl, mat_b, w, *sc)))
+    err_tb = max(err_tb, compare(
+        "global_traceback contiguous z",
+        sw_global.global_traceback(kz.contiguous(), ql, tl, w), want_tb))
+    # the launches alone: no gather of the matrices, no casts of the lengths
+    k2_dp = cuda_ms(lambda: sw_global._launch(q, ql, t, tl, mat_b, w, *sc), 50)
+    k2_fused = (cuda_ms(kc, 20), cuda_ms(lambda: sw_global._launch(
+        q, ql, t, tl, mat_b, w, *sc, sw_global.MAX_OPS), 50))
+    # the edge lanes at every strip width, on int32 and uint8 codes, e_ins of
+    # 0, 1 and 3, five band widths; max_ops = 3 flags most lanes
+    from torch_testdata import global_edge_case
+    k2_widths, n_edge = set(), 0
+    for shape in DP_EDGE_SHAPES + WIDE_SHAPES:
+        k2_widths.add(strip_scan.strip_width(shape[1]))
+        for scores, w_val, codes in (((6, 1, 6, 1), 100, torch.int32),
+                                     ((6, 1, 5, 2), 5, torch.uint8),
+                                     ((5, 2, 3, 3), 2, torch.int32),
+                                     ((6, 1, 6, 0), 17, torch.uint8),
+                                     ((6, 1, 6, 1), 1, torch.int32)):
+            eq, eql, et, etl, emats, emsel, ew = (
+                T(x) for x in global_edge_case(42 + shape[1], *shape, w_val))
+            emat_b = emats[emsel.long()].reshape(-1, 25)
+            qc, tc = eq.to(codes), et.to(codes)
+            tag = f"edge {shape} w={w_val} scores={scores} {codes}"
+            gs, gz = launched("sw_global", lambda: sw_global.sw_global_batch(
+                qc, eql, tc, etl, emats, emsel, *scores, ew))
+            es, ez = sw_global.sw_global_batch_plain(
+                eq, eql, et, etl.clamp(min=1), emat_b, ew.clamp(min=1), *scores)
+            err = max(err, compare(f"sw_global {tag}", (gs, gz), (es, ez)))
+            # a traceback starts inside z; the DP stops at row Lt either way
+            etc = etl.clamp(max=shape[2])
+            for max_ops in (sw_global.MAX_OPS, 3):
+                want = (es, *sw_global.global_traceback_plain(
+                    ez, eql, etc, ew, max_ops))
+                got = launched("sw_global", lambda: sw_global.sw_global_cigar(
+                    qc, eql, tc, etc, emats, emsel, *scores, ew, max_ops))
+                err = max(err, compare(f"sw_global_cigar {tag} max_ops="
+                                       f"{max_ops}", got, want))
+                err_tb = max(err_tb, compare(
+                    f"global_traceback {tag} max_ops={max_ops}",
+                    launched("global_traceback",
+                             lambda: sw_global.global_traceback(
+                                 gz, eql, etc, ew, max_ops)), want[1:]))
+            n_edge += 1
+    wide_memory(sw_global._lib().sw_global_scratch_words)
+    if k2_widths != all_widths:
+        raise AssertionError(f"sw_global: strip widths {sorted(k2_widths)} "
+                             f"launched of {sorted(all_widths)}")
+    cells = band_cells(ql, tl1, w1)
+    ms = cuda_ms(kd, 20)
+    # the row's times are those of the call the align path makes: the DP with
+    # the traceback behind it in one launch, against the plain composition.
+    # The bound is the DP's as before (z, which the fused launch writes too,
+    # is nearly all of its bytes)
+    row("sw_global", "sw_global.cu", "biscuit_tpu/ops/pallas_global.py:133",
+        err, k2_fused[0], cuda_ms(lambda: sw_global.sw_global_cigar_plain(
+            q, ql, t, tl, mat_b, w, *sc), 2),
+        f"B=2048 Lq=150 Lt=160, {cells} band cells; the DP with the "
+        f"traceback behind it in one launch (sw_global_cigar, the engine's "
+        f"call, this row's ms): the wrapper {k2_fused[0]:.4f} ms, the launch "
+        f"alone {k2_fused[1]:.4f} ms; the DP alone: the wrapper {ms:.4f} ms, "
+        f"the launch alone {k2_dp:.4f} ms, plain {cuda_ms(pd, 3):.4f} ms; + "
+        f"{n_edge} edge cases at strip widths {sorted(k2_widths)} (0: the "
+        f"wide instance, Lq {[x[1] for x in WIDE_SHAPES]}), uint8 and int32 "
+        f"codes, e_ins 0/1/3, w in {{1,2,5,17,100}}: equal",
+        nbytes(q, ql, t, tl, mats, msel, w, ks, kz),
+        cells * CELL_OPS["sw_global"])
     # and lanes past max_ops: unrelated sequences under cheap gaps and dear
     # mismatches need ~75 runs; the flags and truncated buffers must match
     B2 = 256
@@ -500,18 +660,24 @@ def smoke(work: str) -> int:
     l2, w2 = T(np.full(B2, 120, np.int32)), T(np.full(B2, 40, np.int32))
     m2 = T(np.where(np.eye(5, dtype=bool), 1, -20)[None].astype(np.int32))
     z0 = T(np.zeros(B2, np.int32))
-    _s2, z2 = sw_global.sw_global_batch(q2, l2, t2, l2, m2, z0, 1, 1, 1, 1, w2)
+    s2, z2 = sw_global.sw_global_batch(q2, l2, t2, l2, m2, z0, 1, 1, 1, 1, w2)
     got2 = sw_global.global_traceback(z2, l2, l2, w2)
-    err = max(err, compare("global_traceback overflow", got2,
-                           sw_global.global_traceback_plain(z2, l2, l2, w2)))
+    want2 = sw_global.global_traceback_plain(z2, l2, l2, w2)
+    err_tb = max(err_tb, compare("global_traceback overflow", got2, want2),
+                 compare("sw_global_cigar overflow", sw_global.sw_global_cigar(
+                     q2, l2, t2, l2, m2, z0, 1, 1, 1, 1, w2), (s2, *want2)))
     n_ov = int(got2[2].sum())
     if n_ov == 0:
         raise AssertionError("the overflow case did not overflow")
     row("global_traceback", "sw_global.cu",
-        "biscuit_tpu/ops/pallas_global.py:242", err, cuda_ms(kt, 20),
-        cuda_ms(pt, 3), f"B=2048 (+{n_ov} overflow lanes of {B2} checked)",
+        "biscuit_tpu/ops/pallas_global.py:242", err_tb, cuda_ms(kt, 20),
+        cuda_ms(pt, 3), f"B=2048, as a kernel of its own over the lane-major "
+        f"z: no path launches it (on the align path the walk runs behind the "
+        f"DP inside sw_global's launch) (+{n_ov} overflow lanes of {B2}, the "
+        f"edge cases at max_ops 64 and 3, a contiguous z: equal)",
         # the walk reads one direction byte a step, at most qlen + tlen steps
-        int((ql + tl).sum()) + nbytes(ql, tl, w, *kt()), 4 * int((ql + tl).sum()))
+        int((ql + tl).sum()) + nbytes(ql, tl, w, *kt()), 4 * int((ql + tl).sum()),
+        paths=())
 
     # K4: 2^20 random ranks on the phase-4 index
     fm = seed_batch.FMPair.from_index(idx, dev)
@@ -573,21 +739,111 @@ def smoke(work: str) -> int:
                                  f"{got[1].shape[0]} rows for {n_lanes} lanes")
         return err, kf, pf, got
 
+    def host_rows(lanes, n_lanes, o):
+        q_, l_, p_ = (x.cpu().numpy() for x in lanes)
+        return [collect_intv(o, fms[int(p_[b])], fms[1 - int(p_[b])],
+                             q_[b, :l_[b]]) for b in range(n_lanes)]
+
+    def rows_of(got, n_lanes):
+        lane_of, rows = got[0].cpu(), got[1].cpu()
+        return [[tuple(r) for r in rows[lane_of == b].tolist()]
+                for b in range(n_lanes)]
+
     B = lq.shape[0]
     err, ks, ps, got = seed_check("smem_seed", fm, (lq, ll, lp), B)
     # the first lanes against the host's exact smem.collect_intv
-    lane_of, rows, _ov = (x.cpu() for x in got)
-    for b in range(64):
-        p = int(lp[b])
-        want = collect_intv(opt, fms[p], fms[1 - p], lq[b, :int(ll[b])].cpu().numpy())
-        mine = [tuple(r) for r in rows[lane_of == b].tolist()]
-        if mine != want:
-            raise AssertionError(f"smem_seed lane {b} differs from collect_intv")
+    if rows_of(got, 64) != host_rows((lq, ll, lp), 64, opt):
+        raise AssertionError("smem_seed differs from collect_intv")
+    n_rows = got[1].shape[0]
     err = max(err, seed_check("smem_seed wide", fmw, (lq, ll, lp), B)[0])
+    # the launch alone: no casts, no range check with its sync, no row mask
+    params = seed_batch.seed_params(opt)
+    k3 = (cuda_ms(ks, 10), cuda_ms(lambda: seed_batch._launch_seed(
+        fm, lq, ll, lp, params, seed_batch.SEED_CAP), 20))
+    k3_wide = cuda_ms(lambda: seed_batch._launch_seed(
+        fmw, lq, ll, lp, params, seed_batch.SEED_CAP), 20)
+    # the launch alone by batch size: at 128 lanes, under one a SM, a lane's
+    # own chain of extensions is all there is; at 8192 the card is full
+    by_b = {n: round(cuda_ms(lambda: seed_batch._launch_seed(
+        fm, lq[:n], ll[:n], lp[:n], params, seed_batch.SEED_CAP), 20), 4)
+        for n in (128, 1024, B)}
+    say(f"[3] smem_seed, the launch alone by lanes a call (ms): "
+        f"{json.dumps(by_b)} [{card}]")
+    # reads so long that a lane's interval lists do not fit an SM's shared
+    # memory and lie in device memory: LONG_JOIN path reads joined end to end,
+    # under S = LONG_S rows so that no lane overflows, held to the host's
+    # collect_intv (the plain version makes a step a base of the longest
+    # lane: a quarter of an hour on these)
+    n_long = 8
+    hq, hl, hp = (x.cpu().numpy() for x in (lq, ll, lp))
+    joined = [np.concatenate([hq[r, :hl[r]] for r in range(
+        i % 2 + 2 * LONG_JOIN * i, i % 2 + 2 * LONG_JOIN * (i + 1), 2)])
+        for i in range(n_long)]  # lane i: LONG_JOIN reads of one conversion
+    long_len = np.asarray([len(x) for x in joined], np.int32)
+    longq = np.full((n_long, long_len.max()), 4, np.int32)
+    for i, x in enumerate(joined):
+        longq[i, :len(x)] = x
+    long_lanes = (T(longq), T(long_len), T(hp[np.arange(n_long) % 2]))
+    per_lane = int(seed_batch._seed_lib().smem_seed_scratch_bytes(
+        longq.shape[1], LONG_S, 0))
+    if per_lane <= 0:
+        raise AssertionError(f"L={longq.shape[1]}: the lists fit shared memory")
+    g = launched("smem_seed", lambda: seed_batch.collect_intv_flat(
+        fm, *long_lanes, opt, S=LONG_S))
+    host = host_rows(long_lanes, n_long, opt)
+    if any(g[2].tolist()) or rows_of(g, n_long) != host:
+        raise AssertionError("smem_seed long reads differ from collect_intv")
+    say(f"[3] smem_seed, {n_long} reads of {longq.shape[1]} bases, S={LONG_S}: "
+        f"the lists in device memory ({per_lane} bytes a lane), "
+        f"{g[1].shape[0]} rows, {min(len(h) for h in host)} to "
+        f"{max(len(h) for h in host)} a lane: kernel == collect_intv")
+    # the edge lanes (N at every kind of place, reads of no and one base,
+    # tandem repeats, joined reads, a homopolymer that overflows S = 128)
+    # beside the first 96 lanes of the path: under the default options,
+    # under -e (start_width = 2), and under S of 3 and 1, which flag more; two of the cases on the wide index too;
+    # equal to the plain version in rows, counts and flags, and to the host
+    from biscuit_tpu_torch.config import MEM_F_SELF_OVLP
+    from biscuit_tpu_torch.io.fastq import fastq_iter, read_batch
+    from torch_testdata import lanes_both_ways, seed_edge_reads
+    genuine = [s.seq for s in read_batch(fastq_iter(fq), None, 1 << 60)[:6]]
+    eq, el, ep = (T(a) for a in lanes_both_ways(seed_edge_reads(genuine)))
+    pad = lq.shape[1] - eq.shape[1]
+    eq = torch.nn.functional.pad(eq, (0, pad), value=4)
+    edge = tuple(torch.cat([a, b[:96]]) for a, b in
+                 ((eq, lq), (el, ll), (ep, lp)))
+    nE, n_flagged, n_cases = edge[0].shape[0], {}, 0
+    for flag in (0, MEM_F_SELF_OVLP):
+        o = MemOpt()
+        o.flag |= MEM_F_NO_MULTI | flag
+        host = host_rows(edge, nE, o)
+        for S in (seed_batch.SEED_CAP, 1 if flag else 3):
+            for f in ((fmw, fm) if S == seed_batch.SEED_CAP and not flag
+                      else (fmw,) if flag and S == 1 else (fm,)):
+                g = launched("smem_seed", lambda: seed_batch.collect_intv_flat(
+                    f, *edge, o, S=S))
+                p_ = seed_batch.collect_intv_flat_plain(f, *edge, o, S)
+                err = max(err, compare(f"smem_seed edge lanes flag={flag} S={S} "
+                                       f"wide={f.wide}", g, p_))
+                n_cases += 1
+            # a lane is flagged iff the host gives it more than S rows, and
+            # then has none; the others have the host's rows
+            flags = g[2].tolist()
+            if flags != [len(h) > S for h in host] or rows_of(g, nE) != [
+                    [] if fl else h for fl, h in zip(flags, host)]:
+                raise AssertionError(f"smem_seed edge lanes flag={flag} S={S} "
+                                     "differ from collect_intv")
+            if not 0 < sum(flags) < nE:
+                raise AssertionError(f"S={S} flagged {sum(flags)} lanes")
+            n_flagged[S] = n_flagged.get(S, 0) + sum(flags)
+    ms = k3[0]
     row("smem_seed", "smem_seed.cu", "biscuit_tpu/ops/seed_batch.py:1847", err,
-        cuda_ms(ks, 10), cuda_ms(ps, 1),
+        ms, cuda_ms(ps, 1, warm=False),
         f"B={B} lanes, L={lq.shape[1]}, narrow index (times), wide (equality), "
-        f"{rows.shape[0]} rows",
+        f"{n_rows} rows; the wrapper {k3[0]:.4f} ms, the launch alone "
+        f"{k3[1]:.4f} ms (wide index: {k3_wide:.4f} ms); + {n_cases} cases of "
+        f"{nE} edge and path lanes (-e; lanes flagged by S: "
+        f"{json.dumps(n_flagged)}; two on the wide index): equal, and equal to "
+        f"the host's collect_intv",
         # a floor: every base of a lane is extended over at least once, and
         # an extension gathers two rows of the fused table
         nbytes(lq, ll, lp, *got) + 2 * int(ll.sum()) * fm.tab.shape[-1]
@@ -712,8 +968,11 @@ def smoke(work: str) -> int:
     big = tuple(T(a) for a in lanes_of(bfq, N_READS))
     kb, _pb = seed_fns(fmb, big, B)
     _err, _kb, pb, _got = seed_check("smem_seed 50 Mbp", fmb, big, BIG_CHECK)
-    say(f"[3] smem_seed 50 Mbp: kernel {cuda_ms(kb, 5):.4f} ms for {B} lanes, "
-        f"plain {cuda_ms(pb, 1):.4f} ms for {BIG_CHECK} lanes, equal on "
+    big_alone = cuda_ms(lambda: seed_batch._launch_seed(
+        fmb, *big, params, seed_batch.SEED_CAP), 10)
+    say(f"[3] smem_seed 50 Mbp: kernel {cuda_ms(kb, 5):.4f} ms for {B} lanes "
+        f"(the launch alone {big_alone:.4f} ms), "
+        f"plain {cuda_ms(pb, 1, warm=False):.4f} ms for {BIG_CHECK} lanes, equal on "
         f"{BIG_CHECK} [{card}]")
     rb = T(rng.integers(0, fmb.seq_len + 1, n).astype(np.int32))
     kw = lambda: seed_batch.sa_batch(fmb, which, rb)
@@ -930,7 +1189,7 @@ def smoke(work: str) -> int:
     # the default scores, e_ins = 0 (the scan's decay vanishes), e_ins = 3
     # and scores that saturate the u8 lanes
     k7_widths, n_edge = set(), 0
-    for B, Lq, Lt in DP_EDGE_SHAPES:
+    for B, Lq, Lt in DP_EDGE_SHAPES + WIDE_SHAPES:
         Lq = -(-Lq // 16) * 16
         k7_widths.add(strip_scan.strip_width(Lq))
         for (ma, mb, *scores), codes in (((1, 2, 6, 1, 6, 1), torch.int32),
@@ -946,19 +1205,10 @@ def smoke(work: str) -> int:
                 f"sw_local edge {(B, Lq, Lt)} a={ma} b={mb} scores={scores} "
                 f"{codes}", a)[0])
             n_edge += 1
-    if k7_widths != set(strip_scan.STRIP_WIDTHS):
+    wide_memory(sw_local._lib().sw_local_scratch_words)
+    if k7_widths != all_widths:
         raise AssertionError(f"sw_local: strip widths {sorted(k7_widths)} "
-                             f"launched of {strip_scan.STRIP_WIDTHS}")
-    # a query wider than any instance raises; nothing launches
-    wide = 32 * max(strip_scan.STRIP_WIDTHS) + 16
-    first, last = local_edge_case(1, 2, wide, 40)
-    try:
-        launched("sw_local", lambda: sw_local.sw_local_batch(
-            *(T(x) for x in first), 6, 1, 6, 1, *(T(x) for x in last)), n=0)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("sw_local took a query no instance fits")
+                             f"launched of {sorted(all_widths)}")
     fwd = caught[0]  # the forward pass: every candidate of the chunk
     kf, pf = local_fns(fwd)
     ms = cuda_ms(kf, 20)
@@ -984,16 +1234,100 @@ def smoke(work: str) -> int:
         f"({k7_alone * 1e6 / max(int(cells.max()), 1):.1f} ns a cell of the "
         f"longest lane); + {n_seeded} seeded lanes ({n_u8} u8, {n_sat} "
         f"saturated), {n_edge} edge cases at strip widths "
-        f"{sorted(k7_widths)}, uint8 and int32 codes, e_ins 0/1/3: equal; a "
-        f"wider query refused",
+        f"{sorted(k7_widths)} (0: the wide instance), uint8 and int32 "
+        f"codes, e_ins 0/1/3: equal",
         nbytes(*(x for x in fwd if torch.is_tensor(x)), *kf().values()),
         int(cells.sum()) * CELL_OPS["sw_local"], paths=("4b",))
+    # what the wide instance costs: the three wrappers on 2048 edge lanes at
+    # the widest compiled strip and at phase 4c's width
+    def wide_times():
+        for B, Lq, Lt in ((2048, 512, 530), (2048, WIDE_LEN, WIDE_LEN + 20)):
+            sc = (6, 1, 6, 1)
+            q, ql, t, tl, mats, msel, w, bonus, h0 = (
+                T(x) for x in extend_edge_case(3, B, Lq, Lt))
+            k1 = cuda_ms(lambda: sw_extend.sw_extend_batch(
+                q, ql, t, tl, mats, msel, *sc, w, bonus, 100, h0), 10)
+            q, ql, t, tl, mats, msel, w = (T(x) for x in global_edge_case(3, B, Lq, Lt))
+            tl = tl.clamp(max=Lt)
+            k2 = cuda_ms(lambda: sw_global.sw_global_cigar(
+                q, ql, t, tl, mats, msel, *sc, w), 10)
+            first, last = local_edge_case(3, B, Lq, Lt)
+            a = (*(T(x) for x in first), *sc, *(T(x) for x in last))
+            k7 = cuda_ms(lambda: sw_local.sw_local_batch(*a), 10)
+            say(f"[3] edge lanes B={B} Lq={Lq} Lt={Lt}, instance C="
+                f"{strip_scan.strip_width(Lq)} (0: wide), the wrappers: sw_extend "
+                f"{k1:.4f} ms, sw_global_cigar {k2:.4f} ms, sw_local {k7:.4f} ms "
+                f"[{card}]")
+    wide_times()
     for r in table:
         n_se, n_pe = launches.get(r["name"], 0), plaunch.get(r["name"], 0)
         if "4b" in r["paths"]:
             r["launches"] = n_se + n_pe
             if n_pe < 1:
                 raise AssertionError(f"{r['name']} never launched on the PE path")
+
+    # 4c. reads of WIDE_LEN bases, wider than the widest compiled strip of
+    # K1, K7 and K2, through the CLI on the card. Their extension, rescue
+    # and global-alignment lanes run the kernels' wide instance; the SAM
+    # must be the host engine's. SE, then pairs of a long mate 1 (which rescue aligns
+    # as a long query from its mate's place) and a 150 bp mate 2. No mate is
+    # damaged here: a long read without its own hit collects chance 19-mers
+    # of the three-letter genome as weak regions, and for such a read the
+    # device engines (the JAX package's too) list regions in SA:Z that the
+    # host engine does not format (ROADMAP.md, Queue 3).
+    t0 = time.perf_counter()
+    wfa, wfq, _ = make_dataset(
+        os.path.join(work, "wide"), genome_size=GENOME, n_reads=N_WIDE,
+        read_len=WIDE_LEN, seed=SEED, snp_rate=0.001, indel_every=16,
+        index=False)
+    wpfa, (wfq1, wfq2), _ = make_dataset(
+        os.path.join(work, "widepe"), genome_size=GENOME, n_reads=N_WIDE_PAIRS,
+        read_len=WIDE_LEN, seed=SEED, snp_rate=0.001, indel_every=8, pe=True,
+        index=False)
+    for other in (wfa, wpfa):
+        with open(fa, "rb") as f1, open(other, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("the long reads' genome differs from "
+                                     "phase 4's")
+    trim_fastq(wfq2, READ_LEN)
+    say(f"[4c] data: {N_WIDE} reads and {N_WIDE_PAIRS} mates 1 of {WIDE_LEN} "
+        f"bp (the widest compiled strip: {32 * max(strip_scan.STRIP_WIDTHS)} "
+        f"columns), mates 2 of {READ_LEN} bp, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for tag, argv, seqs, flag, need in (
+            ("SE", [fa, wfq], read_batch(fastq_iter(wfq), None, 1 << 60), 0,
+             ("sw_extend", "sw_global")),
+            ("PE", [fa, wfq1, wfq2], load_pairs(wfq1, wfq2), MEM_F_PE,
+             ("sw_extend", "sw_global", "sw_local"))):
+        # the widths the DP wrappers pick their instance for, on this run
+        seen, real_width = [], strip_scan.strip_width
+        strip_scan.strip_width = lambda Lq: seen.append(Lq) or real_width(Lq)
+        try:
+            wbody, wwall, wl, wrep = align(argv)
+        finally:
+            strip_scan.strip_width = real_width
+        n_wide = sum(real_width(Lq) == strip_scan.WIDE for Lq in seen)
+        wprim = primaries(wbody, len(seqs))
+        wmapped = sum(1 for f in wprim if not int(f[1]) & 4)
+        want, host_s = host_sam(seqs, flag, os.cpu_count() or 1)
+        if "".join(ln + "\n" for ln in wbody) != want:
+            raise AssertionError(f"{tag} SAM of the long reads differs from "
+                                 "the host engine's")
+        counts = {k: wl.get(k, 0) for k in need}
+        if (any(n < 1 for n in counts.values()) or n_wide < 1
+                or wmapped < 0.6 * len(seqs)):
+            raise AssertionError(f"{tag} long reads: {wmapped} of {len(seqs)} "
+                                 f"mapped, launches {counts}, {n_wide} of the "
+                                 f"wide instance")
+        redone = {k: wrep[k] for k in ("seed_overflow_lanes", "chain_host_lanes",
+                                       "traceback_overflow_lanes")}
+        say(f"[4c] {tag}: {len(seqs)} reads, {wmapped} mapped, SAM "
+            f"byte-identical to the host engine ({host_s:.1f} s on host); "
+            f"launches of the DP kernels: {json.dumps(counts)}, {n_wide} of "
+            f"them of the wide instance (widest query {max(seen)} columns); "
+            f"lanes redone on the host by the other "
+            f"capacities: {json.dumps(redone)}; {len(seqs) / wwall:.1f} reads/s, wall "
+            f"{wwall:.2f} s [{card}]")
 
     # 6. the pileup slice end to end: align on the card, sort, pileup on the
     # card through the CLI, against the same CLI on the CPU

@@ -576,3 +576,113 @@ def test_cli_answers_other_subcommands_with_not_ported(name):
                        timeout=120)
     assert r.returncode == 1 and r.stdout == ""
     assert f"[biscuit_tpu_torch] '{name}' is not ported yet" in r.stderr
+
+
+# ---------------------------------------------------------------------------
+# reads wider than the widest compiled strip, and the CLI's main
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["se", "pe"])
+def test_reads_wider_than_the_widest_strip_align_on_the_device_engine(
+        data, tmp_path, layout):
+    """Reads of 560 bp, wider than the 512 columns of the widest compiled
+    strip (on the card: the DP kernels' wide instance), go through the
+    device engine like any other: no lane is sent elsewhere for its width,
+    the ops meet queries over 512 columns, and the SAM is the port's host
+    engine's."""
+    from biscuit_tpu_torch.ops import strip_scan, sw_extend, sw_global, sw_local
+    fa, _fq, idx = data
+    pe = layout == "pe"
+    wfa, wfq, _ = make_dataset(tmp_path, genome_size=60000, n_reads=4 if pe else 6,
+                               n_chroms=2, seed=11, read_len=560, snp_rate=0.01,
+                               indel_every=2, pe=pe, index=False)
+    with open(fa, "rb") as f1, open(wfa, "rb") as f2:
+        assert f1.read() == f2.read()       # the same seed: the same genome
+    load = (lambda: load_pairs(*wfq)) if pe else (lambda: load_reads(wfq, 6))
+    opt = _pe_opt if pe else _opt
+    widths = collections.defaultdict(int)
+    real = {}
+    for mod, name in ((sw_extend, "sw_extend_batch"),
+                      (sw_global, "sw_global_cigar"),
+                      (sw_local, "sw_local_batch")):
+        real[name] = getattr(mod, name)
+
+    def spy(name):
+        def fn(query, *a, **k):
+            widths[name] = max(widths[name], query.shape[1])
+            return real[name](query, *a, **k)
+        return fn
+    import biscuit_tpu_torch.align.device_engine as eng
+    saved = (eng.sw_extend_batch, eng.sw_global_cigar, sw_local.sw_local_batch)
+    eng.sw_extend_batch = spy("sw_extend_batch")
+    eng.sw_global_cigar = spy("sw_global_cigar")
+    sw_local.sw_local_batch = spy("sw_local_batch")
+    try:
+        reset_stages()
+        seqs = load()
+        process_seqs_device(opt(), tpipe.AlignerState(idx.port), seqs, 0,
+                            device="cpu")
+    finally:
+        eng.sw_extend_batch, eng.sw_global_cigar, sw_local.sw_local_batch = saved
+    host = load()
+    tpipe.process_seqs(opt(), tpipe.AlignerState(idx.port), host, 0)
+    assert [s.sam for s in seqs] == [s.sam for s in host]
+    assert sum(not int(s.sam.split("\t")[1]) & 4 for s in seqs) >= len(seqs) - 1
+    cap = 32 * max(strip_scan.STRIP_WIDTHS)
+    assert widths["sw_global_cigar"] > cap
+    assert strip_scan.strip_width(widths["sw_global_cigar"]) == strip_scan.WIDE
+    if pe:
+        assert widths["sw_local_batch"] > cap
+    assert not any(k.endswith("_host_lanes") and k != "chain_host_lanes"
+                   for k in stage_report())
+
+
+def test_main_prints_the_summary_and_exit_codes_match_the_jax_cli(
+        tmp_path, capsys):
+    """`main` ends a subcommand that returned 0 with the three [main] lines
+    on stderr, as biscuit_tpu/cli.py does; stdout is the subcommand's alone;
+    `version`, no arguments and an unknown subcommand exit as there."""
+    import re
+    import shutil
+    from biscuit_tpu import cli as jcli
+    from biscuit_tpu_torch import __version__, cli as tcli
+    fa = tmp_path / "g.fa"
+    fa.write_text(">c\n" + "ACGTTGCAAGCTTGCATGCCTGCAGGTCGACT" * 8 + "\n")
+    errs = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        own = tmp_path / name / "g.fa"
+        own.parent.mkdir()
+        shutil.copy(fa, own)
+        capsys.readouterr()
+        assert cli.main(["index", str(own)]) == 0
+        out, err = capsys.readouterr()
+        assert out == ""
+        errs[name] = [ln for ln in err.splitlines() if ln.startswith("[main]")]
+    assert len(errs["jax"]) == len(errs["port"]) == 3
+    assert errs["port"][0] == f"[main] Version: {__version__}"
+    assert errs["port"][1].startswith("[main] CMD: biscuit_tpu_torch index ")
+    pat = r"\[main\] Real time: \d+\.\d{3} sec; CPU: \d+\.\d{3} sec"
+    assert re.fullmatch(pat, errs["port"][2]) and re.fullmatch(pat, errs["jax"][2])
+    for argv in (["version"], [], ["no_such_subcommand"]):
+        capsys.readouterr()
+        want = jcli.main(list(argv))
+        capsys.readouterr()
+        assert tcli.main(list(argv)) == want
+        out, err = capsys.readouterr()
+        assert "[main]" not in err
+        assert (argv == ["version"]) == out.startswith("biscuit_tpu_torch ")
+
+
+def test_cli_exits_quietly_on_a_broken_pipe(data):
+    """`align ... | head -1`: the reader closes the pipe after the first
+    line; the CLI exits 1 without a traceback, as the JAX package's."""
+    fa, fq, _idx = data
+    p = subprocess.Popen([sys.executable, "-m", "biscuit_tpu_torch.cli",
+                          "align", fa, fq], cwd=REPO, env=_env(),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    first = p.stdout.readline()
+    p.stdout.close()
+    err = p.stderr.read().decode()
+    assert p.wait(timeout=300) == 1, err[-2000:]
+    assert first.startswith(b"@SQ")
+    assert "Traceback" not in err and "[main] Version" not in err

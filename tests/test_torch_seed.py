@@ -8,6 +8,7 @@ smem.collect_intv on every lane, on narrow (int32 rank) and wide (int64
 rank, BISCUIT_TPU_WIDE_INDEX=1) indexes. Exact equality throughout: every
 value is an integer.
 """
+import collections
 import copy
 
 import numpy as np
@@ -22,45 +23,14 @@ from biscuit_tpu_torch.align.smem import collect_intv
 from biscuit_tpu_torch.ops import seed_batch as tsb
 from biscuit_tpu_torch.ops.fm import FMNumpy
 
-from torch_testdata import jax_index, load_reads, make_dataset
+from torch_testdata import (jax_index, lanes_both_ways as _lanes, load_reads,
+                            make_dataset, seed_edge_reads)
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
 torch.set_num_threads(1)
 
 NT = np.frombuffer(b"ACGT", np.uint8)
-
-
-def _bsconvert(q, parent):
-    """bseq_bsconvert on nt4 codes: C>T for the parent strand, G>A for
-    the daughter."""
-    q = q.copy()
-    if parent:
-        q[q == 1] = 3
-    else:
-        q[q == 2] = 0
-    return q
-
-
-def _pad(seqs):
-    L = max(len(s) for s in seqs)
-    q = np.full((len(seqs), L), 4, np.int32)
-    lens = np.zeros(len(seqs), np.int32)
-    for i, s in enumerate(seqs):
-        q[i, :len(s)] = s
-        lens[i] = len(s)
-    return q, lens
-
-
-def _lanes(reads):
-    """Each read converted both ways: (q [B, L], lens [B], parents [B])."""
-    conv, par = [], []
-    for s in reads:
-        for p in (0, 1):
-            conv.append(_bsconvert(s, p))
-            par.append(p)
-    q, lens = _pad(conv)
-    return q, lens, np.asarray(par, np.int32)
 
 
 def _repeat_fasta(path, seed=3):
@@ -124,7 +94,8 @@ def data(tmp_path_factory):
     rep_reads = [g[s:s + 100] for s in starts]
     rep_reads += [3 - r[::-1] for r in rep_reads[:6]]  # reverse strand
     return {"narrow": (narrow, _lanes(reads)), "wide": (wide, _lanes(reads)),
-            "repeat": (rep_idx, _lanes(rep_reads))}
+            "repeat": (rep_idx, _lanes(rep_reads)),
+            "edge": (narrow, _lanes(seed_edge_reads(reads[:6])))}
 
 
 def _fms(idx):
@@ -182,6 +153,83 @@ def test_occ4_sel_plain_matches_jax(data, layout):
     fms = _fms(idx)
     for wh, kk, g in list(zip(which, k, got.tolist()))[:400]:
         assert tuple(g) == tuple(fms[int(wh)].occ4_s(int(kk)))
+
+
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+def test_occ4_by_words_matches_plain_and_jax(data, layout):
+    """occ4 as a thread of K3 computes it (for each class its count and the
+    count of the classes above, from shifted, xor-ed and masked BWT words; the
+    edges replace the result) on random ranks and on -1, 0, each primary and
+    its neighbours, seq_len - 1 and seq_len, and on every position of a
+    word."""
+    idx = data[layout][0]
+    jfm = jsb.FMPair.from_index(jax_index(idx))
+    tfm = tsb.FMPair.from_index(idx, "cpu")
+    rng = np.random.default_rng(4)
+    k = np.concatenate([_ranks(rng, idx, 3000), np.arange(640, 640 + 130)])
+    which = rng.integers(0, 2, k.size).astype(np.int32)
+    rdt = np.int64 if tfm.wide else np.int32
+    T = torch.from_numpy
+    eq, gt = tsb.occ_class_plain(tfm, T(which), T(k.astype(rdt)))
+    assert eq.dtype == tfm.rdt and gt.dtype == tfm.rdt
+    occ = tsb.occ4_sel_plain(tfm, T(which), T(k.astype(rdt)))
+    assert torch.equal(eq, occ)
+    above = torch.flip(torch.cumsum(torch.flip(occ, [1]), 1), [1]) - occ
+    assert torch.equal(gt, above.to(tfm.rdt))
+    with jsb._rank_ctx(jfm):
+        want = np.asarray(jsb.occ4_sel(jfm, jsb.jnp.asarray(which),
+                                       jsb.jnp.asarray(k.astype(rdt))))
+    np.testing.assert_array_equal(eq.numpy(), want)
+
+
+def test_rank_order_is_the_stable_sort():
+    """Each row's count of rows before it is its place in the stable sort
+    by (start, end), ties (which a lane's rows do not have, see below)
+    included."""
+    rng = np.random.default_rng(6)
+    for n in (0, 1, 2, 31, 32, 33, 128):
+        start = torch.from_numpy(rng.integers(0, 12, n))
+        end = start + torch.from_numpy(rng.integers(1, 6, n))
+        rank = tsb.rank_order(start, end)
+        order = torch.sort(start * 1000 + end, stable=True).indices
+        assert sorted(rank.tolist()) == list(range(n))
+        placed = torch.empty(n, dtype=torch.long)
+        placed[rank] = torch.arange(n)
+        assert torch.equal(placed, order)
+
+
+@pytest.mark.parametrize("layout", ["narrow", "wide", "repeat"])
+def test_rows_do_not_depend_on_the_order_of_the_passes(data, layout):
+    """What lets K3 store a lane's rows in any order before its sort: within
+    a lane, rows with equal (start, end) are equal rows (one substring of
+    the read has one interval), and pass 3's rows are those
+    `_strategy_plain` gives alone, whatever passes 1 and 2 found."""
+    idx, (q, lens, par) = data[layout]
+    opt = MemOpt()
+    lane_of, rows, ov = _plain(data, layout)
+    assert not ov.any()
+    full = collections.defaultdict(list)
+    for b, r in zip(lane_of.tolist(), rows.tolist()):
+        full[b].append(tuple(r))
+    for b, rs in full.items():
+        by_key = {}
+        for r in rs:
+            assert by_key.setdefault(r[:2], r) == r, f"lane {b}: {r}"
+    tfm = tsb.FMPair.from_index(idx, "cpu")
+    T = torch.from_numpy
+    no_p3 = copy.copy(opt)
+    no_p3.max_mem_intv = 0
+    l12, r12, _ = tsb.collect_intv_flat(tfm, T(q), T(lens), T(par), no_p3)
+    msl, _sl, _sw, max_intv, _st = tsb.seed_params(opt)
+    l3, r3 = tsb._strategy_plain(tsb._Lanes(tfm, T(q), T(lens), T(par)), msl,
+                                 max_intv)
+    assert l3.numel() > 0
+    merged = collections.defaultdict(list)
+    for b, r in zip(l12.tolist() + l3.tolist(), r12.tolist() + r3.tolist()):
+        merged[b].append(tuple(r))
+    assert set(merged) == set(full)
+    for b in full:
+        assert sorted(merged[b]) == sorted(full[b]), f"lane {b}"
 
 
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
@@ -275,6 +323,28 @@ def test_small_cap_flags_exactly_the_lanes_over_it(data):
     keep = ~ov.numpy()[full_lane.numpy()]
     np.testing.assert_array_equal(lane_of.numpy(), full_lane.numpy()[keep])
     np.testing.assert_array_equal(rows.numpy(), full_rows.numpy()[keep])
+
+
+@pytest.mark.parametrize("flag", [0, MEM_F_SELF_OVLP],
+                         ids=["default", "self_ovlp"])
+def test_edge_lanes_match_host(data, flag):
+    """The lanes of torch_testdata.seed_edge_reads (N at every kind of place,
+    reads of no and one base, tandem repeats, joined reads), which the
+    bring-up check also puts through K3 on the card: the rows are the
+    host's, and under S = 1 exactly the lanes with more rows are flagged."""
+    idx, (q, lens, par) = data["edge"]
+    opt = MemOpt()
+    opt.flag |= flag
+    tfm = tsb.FMPair.from_index(idx, "cpu")
+    T = torch.from_numpy
+    got, ov = tsb.collect_intv_batch(tfm, T(q), T(lens), T(par), opt)
+    want = _host(opt, idx, q, lens, par)
+    assert not ov.any() and got == want
+    assert sum(len(w) > 1 for w in want) > 2 and [] in want
+    _lane, rows1, ov1 = tsb.collect_intv_flat(tfm, T(q), T(lens), T(par), opt,
+                                              S=1)
+    assert ov1.tolist() == [len(w) > 1 for w in want]
+    assert rows1.shape[0] == sum(len(w) == 1 for w in want)
 
 
 def test_self_overlap_start_width_matches_host(data):

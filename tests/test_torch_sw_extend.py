@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from biscuit_tpu.config import MemOpt
 from biscuit_tpu.ops.pallas_sw import sw_extend_batch_pallas
 from biscuit_tpu.ops.sw_batch import sw_extend_batch as sw_extend_xla
 from biscuit_tpu_torch.ops import strip_scan
 from biscuit_tpu_torch.ops.sw_extend import f_row_strips, sw_extend_batch
 
-from torch_testdata import DP_EDGE_SHAPES_CPU, extend_edge_case
+from torch_testdata import (DP_EDGE_SHAPES_CPU, extend_edge_case, jax_opt,
+                            port_opt)
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 
 
 def _rand_case(rng, B, Lq, Lt):
-    opt = MemOpt()
+    opt = port_opt()
     query = rng.integers(0, 4, size=(B, Lq)).astype(np.int32)
     target = rng.integers(0, 4, size=(B, Lt)).astype(np.int32)
     # half the lanes extend a planted match so scores are non-trivial
@@ -47,9 +47,11 @@ def _rand_case(rng, B, Lq, Lt):
 def _both(arrs, opt, zdrop):
     query, qlens, target, tlens, mats, matsel, w, bonus, h0 = arrs
     sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    jopt = jax_opt()  # each package reads scores of its own options class
     J = jnp.asarray
     jargs = (J(query), J(qlens), J(target), J(tlens), J(mats), J(matsel),
-             *sc, J(w), J(bonus), zdrop, J(h0))
+             jopt.o_del, jopt.e_del, jopt.o_ins, jopt.e_ins, J(w), J(bonus),
+             zdrop, J(h0))
     T = torch.from_numpy
     got = sw_extend_batch(T(query), T(qlens), T(target), T(tlens), T(mats),
                           T(matsel), *sc, T(w), T(bonus), zdrop, T(h0))
@@ -67,7 +69,7 @@ def test_sw_extend_matches_jax(B, Lq, Lt, edge):
     query or target, tlen > Lt, w = 0, qlen = Lq) at the widths of the
     kernel's strip instances and batch sizes around a warp."""
     if edge:
-        opt, arrs = MemOpt(), extend_edge_case(42 + Lq, B, Lq, Lt)
+        opt, arrs = port_opt(), extend_edge_case(42 + Lq, B, Lq, Lt)
     else:
         opt, arrs = _rand_case(np.random.default_rng(42 + B), B, Lq, Lt)
     jargs, got = _both(arrs, opt, opt.zdrop)
@@ -96,7 +98,7 @@ def test_sw_extend_narrowing_adversarial(w_val, edge):
     edge: the lanes of extend_edge_case under the same tiny bands, where the
     band's two ends cut through a strip of the kernel in every row."""
     rng = np.random.default_rng(1000 + w_val)
-    opt = MemOpt()
+    opt = port_opt()
     if edge:
         return _check_zdrops(extend_edge_case(w_val, 33, 100, 120, w_val), opt)
     B, Lq, Lt = 64, 48, 160
@@ -125,7 +127,7 @@ def test_sw_extend_plain_counts_the_cells_it_fills():
     """`filled` receives the cells of the rows a lane runs before it breaks:
     by hand on two lanes, then on random lanes each alone and in a batch."""
     from biscuit_tpu_torch.ops.sw_extend import band_clamp, sw_extend_batch_plain
-    opt = MemOpt()
+    opt = port_opt()
     sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
     T = torch.from_numpy
 
@@ -171,7 +173,7 @@ def f_row_serial(tF, e_ins):
 
 
 @pytest.mark.parametrize("e_ins", [0, 1, 3])
-@pytest.mark.parametrize("C", [2, 5, 8])
+@pytest.mark.parametrize("C", [2, 5, 8, 17])    # 17: a strip of the wide instance
 def test_f_scan_in_strips_is_the_serial_f(C, e_ins):
     """One row's F as K1 computes it (strips of C columns, carries combined
     by shifts of 1..16 and decayed by the columns crossed, the band as a
@@ -219,24 +221,40 @@ def test_strip_width_is_the_smallest_that_fits(Lq, C):
     assert C in strip_scan.STRIP_WIDTHS and 32 * C >= Lq
 
 
+@pytest.mark.parametrize("Lq", [513, 640, 16000, 1 << 20])
+def test_a_query_past_the_widest_strip_runs_the_wide_instance(Lq):
+    assert strip_scan.strip_width(Lq) == strip_scan.WIDE
+    assert strip_scan.WIDE not in strip_scan.STRIP_WIDTHS
+    # a compiled width needs no device scratch, whatever the library says
+    assert strip_scan.wide_scratch(None, "unused", 5, 4, 150, "cpu") is None
+
+
 def test_strip_width_refuses_a_query_no_instance_takes():
-    with pytest.raises(ValueError, match="513"):
-        strip_scan.strip_width(513)
+    """Only the int32 margin of the F scans bounds the wide instance."""
+    too_wide = strip_scan.MAX_QUERY_WIDTH + 1
+    with pytest.raises(ValueError, match=str(too_wide)):
+        strip_scan.strip_width(too_wide)
+    with pytest.raises(ValueError):
+        strip_scan.strip_width(-1)
+    assert (strip_scan.VERYNEG - 2 * strip_scan.MAX_QUERY_WIDTH * 256
+            > -2 ** 31 + 4 * 10 ** 8)
     with pytest.raises(ValueError):
         strip_scan.f_row_strips(torch.zeros((1, 65), dtype=torch.int32), 1, 2)
 
 
 def test_strip_widths_are_the_instances_of_both_sources():
-    """STRIP_WIDTHS is the list FOR_EACH_C of each CUDA source."""
+    """STRIP_WIDTHS is the list FOR_EACH_C of each CUDA source, the global
+    kernel's too, and each includes the strips' header."""
     import os
     import re
     from torch_testdata import REPO
     want = " ".join(f"X({c})" for c in strip_scan.STRIP_WIDTHS)
-    for name in ("sw_extend.cu", "sw_local.cu"):
+    for name in ("sw_extend.cu", "sw_local.cu", "sw_global.cu"):
         with open(os.path.join(REPO, "biscuit_tpu_torch", "kernels", name)) as f:
             src = f.read()
         assert re.search(r"#define FOR_EACH_C\(X\) (.*)", src).group(1) == want
         assert "hbuf" not in src and "ebuf" not in src
+        assert '#include "strip.cuh"' in src and "CASE(0)" in src
 
 
 def test_kernel_codes_passes_uint8_and_int32_through():
@@ -274,3 +292,6 @@ def test_ptxas_resources_reads_registers_and_spills():
     assert kernel_label(
         "_ZN45_GLOBAL__N__3beff904_12_sw_global_cu_05e8c04923global_"
         "traceback_kernelEPKhPKiS3_S3_PiS4_Pbiiii") == "global_traceback_kernel"
+    assert kernel_label(
+        "_ZN45_GLOBAL__N__3beff904_12_sw_global_cu_05e8c04916sw_global_"
+        "kernelILi5ELb1EEEvPKvS2_PKiS4_") == "sw_global_kernel<5, true>"

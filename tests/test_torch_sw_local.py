@@ -140,7 +140,7 @@ def test_plain_matches_jax_kernel(regime, u8_mix):
 
 
 @pytest.mark.parametrize("e_ins", [0, 1, 3])
-@pytest.mark.parametrize("C", [2, 5, 8])
+@pytest.mark.parametrize("C", [2, 5, 8, 17])    # 17: a strip of the wide instance
 def test_f_scan_in_strips_is_the_lazy_f(C, e_ins):
     """One row's F as K7 computes it (strips of C columns, carries combined
     by shifts of 1..16 and decayed by the columns crossed, the stripe's end
@@ -280,12 +280,13 @@ def test_engine_fn_matches_jax_engine(tmp_path):
     want = JaxAligner(JaxState(jax_index(idx))).sw_local_batch_fn(JaxMemOpt())(
         reqs, xsubo)
     assert_same(got, want, reqs)
-    scalar = [sw.sw_align(q, t, opt.gamat if p else opt.ctmat, opt.o_del,
-                          opt.e_del, opt.o_ins, opt.e_ins, xstart=True,
+    jopt = JaxMemOpt()  # the JAX package's scalar reads its own options
+    scalar = [sw.sw_align(q, t, jopt.gamat if p else jopt.ctmat, jopt.o_del,
+                          jopt.e_del, jopt.o_ins, jopt.e_ins, xstart=True,
                           xsubo=xsubo, xbyte=xb) for q, t, p, xb in reqs]
     assert_same(got, scalar, reqs)
-    swapped = [sw.sw_align(q, t, opt.ctmat if p else opt.gamat, opt.o_del,
-                           opt.e_del, opt.o_ins, opt.e_ins, xstart=True,
+    swapped = [sw.sw_align(q, t, jopt.ctmat if p else jopt.gamat, jopt.o_del,
+                           jopt.e_del, jopt.o_ins, jopt.e_ins, xstart=True,
                            xsubo=xsubo, xbyte=xb) for q, t, p, xb in reqs]
     assert any(g.score != s.score for g, s in zip(got, swapped))
     assert rep["rescue_lanes"] >= len(reqs)

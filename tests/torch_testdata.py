@@ -113,6 +113,28 @@ def load_pairs(fq1, fq2, jax_pkg=False):
                             fastq.fastq_iter(str(fq2)), 1 << 60)
 
 
+def port_opt(flag=0, **fields):
+    """The port's MemOpt with `flag` or-ed in and `fields` set: options of
+    the port's own class, for the port's functions only."""
+    from biscuit_tpu_torch.config import MemOpt
+    return _opt_of(MemOpt, flag, fields)
+
+
+def jax_opt(flag=0, **fields):
+    """The JAX package's MemOpt with the same settings, for its functions
+    only: no test hands one options object to both packages."""
+    from biscuit_tpu.config import MemOpt
+    return _opt_of(MemOpt, flag, fields)
+
+
+def _opt_of(cls, flag, fields):
+    opt = cls()
+    opt.flag |= flag
+    for k, v in fields.items():
+        setattr(opt, k, v)
+    return opt
+
+
 _STRAND_FIELDS = ("words", "occ_cp", "L2", "primary", "seq_len", "sa_samples",
                   "sa_intv")
 
@@ -143,8 +165,67 @@ def jax_index(port_idx):
 
 
 # ---------------------------------------------------------------------------
-# Lanes for the two DP kernels (K1 sw_extend, K7 sw_local) that aim at what a
-# warp-per-lane kernel with the row in strips of C columns a thread can get
+# Lanes for the seeder (K3): reads as nt4 code arrays, each converted both ways
+# as the engine plans SE lanes
+# ---------------------------------------------------------------------------
+
+def lanes_both_ways(reads):
+    """Each read (nt4 codes) bisulfite-converted for either strand (C>T for
+    the parent strand, G>A for the daughter), padded with 4:
+    (q [2n, L] int32, lens [2n] int32, parents [2n] int32) as numpy."""
+    import numpy as np
+    conv, par = [], []
+    for s in reads:
+        for p in (0, 1):
+            c = np.asarray(s).copy()
+            if p:
+                c[c == 1] = 3
+            else:
+                c[c == 2] = 0
+            conv.append(c)
+            par.append(p)
+    L = max([len(s) for s in conv] + [1])
+    q = np.full((len(conv), L), 4, np.int32)
+    lens = np.zeros(len(conv), np.int32)
+    for i, s in enumerate(conv):
+        q[i, :len(s)] = s
+        lens[i] = len(s)
+    return q, lens, np.asarray(par, np.int32)
+
+
+def seed_edge_reads(reads, seed=9):
+    """Reads that aim at what a warp-per-lane seeder can get wrong, made from
+    at least six genuine reads (nt4 code arrays) of one genome: a few N
+    inside a read, a read shorter than a seed, all N, random bases, an N
+    every 7 and every 25 bases, N as the first and as the last base, reads
+    of one base and of none, a homopolymer, a dinucleotide and a 7-mer
+    tandem repeat of the read's length (long lists of equal intervals), a
+    read whose second half is random, two reads joined, and the reverse
+    complement of a read."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    r = [np.asarray(x).astype(np.int64) for x in reads[:6]]
+    L = len(r[0])
+    amb = r[0].copy()
+    amb[[10, 11, L // 3]] = 4
+    every7, every25 = r[1].copy(), r[2].copy()
+    every7[::7] = 4
+    every25[::25] = 4
+    first_n, last_n = r[3].copy(), r[3].copy()
+    first_n[0], last_n[-1] = 4, 4
+    half = r[4].copy()
+    half[L // 2:] = rng.integers(0, 4, L - L // 2)
+    return [amb, r[1][:15], np.full(80, 4), rng.integers(0, 4, L), every7,
+            every25, first_n, last_n, r[2][:1], r[2][:0],
+            np.full(L, int(r[0][0])), np.resize(r[1][:2], L),
+            np.resize(r[5][20:27], L), half,
+            np.concatenate([r[4][:L // 2], r[5][:L - L // 2]]),
+            np.where(r[5] > 3, 4, 3 - r[5])[::-1]]
+
+
+# ---------------------------------------------------------------------------
+# Lanes for the three DP kernels (K1 sw_extend, K7 sw_local, K2 sw_global) that
+# aim at what a warp-per-lane kernel with the row in strips of C columns a thread can get
 # wrong. The CPU tests put them through the plain versions and the JAX
 # functions, the bring-up check on the card through the kernels and the plain
 # versions: the same lanes on both sides.
@@ -244,6 +325,64 @@ def extend_edge_case(seed, B, Lq, Lt, w_val=100):
     mats = np.stack([opt.gamat, opt.ctmat])
     return tuple(a.astype(np.int32) for a in
                  (q, qlens, t, tlens, mats, msel, w, bonus, h0))
+
+
+def global_edge_case(seed, B, Lq, Lt, w_val=100):
+    """K2 lanes, by lane number modulo 8: 0 a full match with qlen = Lq and
+    a target longer than Lt (the DP stops at row Lt); 1 a homopolymer against
+    itself, 2 a dinucleotide repeat (ties between M, E and F); 3 a target
+    that lost bases (F, often across a strip's edge); 4 one that gained
+    bases (E); 5 random (sentinel cells reach the band); 6 a match of the
+    first third, then garbage; 7 a query of 1-3 bases. Then single lanes: an
+    empty query, tlen = 1, tlen = 0 and w = 0 (both clamped to 1 by the DP),
+    qlen = Lq under w = 1. Some N (code 4) everywhere; three matrices (the
+    two bisulfite ones and match 1 / mismatch -2). Returns the numpy inputs
+    of sw_global_batch without the scores:
+    (query, qlens, target, tlens, mats, matsel, w). A traceback is asked
+    only of tlens clamped to Lt."""
+    import numpy as np
+    from biscuit_tpu_torch.config import MemOpt
+    opt = MemOpt()
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.int32)
+    qlens = rng.integers(max(Lq // 2, 1), Lq + 1, B).astype(np.int32)
+    tlens = rng.integers(max(Lt // 2, 1), Lt + 1, B).astype(np.int32)
+    for b in range(B):
+        k = b % 8
+        if k == 0:
+            qlens[b], tlens[b] = Lq, Lt + 7
+            t[b] = _planted(rng, q[b], Lt, 0)
+        elif k in (1, 2):
+            q[b] = _low_complexity(rng, Lq, k)
+            t[b] = np.resize(q[b], Lt)
+        elif k in (3, 4):
+            t[b] = _planted(rng, q[b, :qlens[b]], Lt, k - 2)
+        elif k == 6:
+            t[b] = _planted(rng, q[b, :qlens[b]], Lt, 3)
+        elif k == 7:
+            qlens[b] = rng.integers(1, 4)
+            t[b, :qlens[b]] = q[b, :qlens[b]]
+    q[rng.random((B, Lq)) < 0.01] = 4
+    t[rng.random((B, Lt)) < 0.01] = 4
+    w = np.full(B, w_val, np.int32)
+    for b, what in ((9, "q0"), (10, "t1"), (11, "t0"), (12, "w0"), (13, "w1")):
+        if b < B:
+            if what == "q0":
+                qlens[b] = 0
+            elif what == "t1":
+                tlens[b] = 1
+            elif what == "t0":
+                tlens[b] = 0
+            elif what == "w0":
+                w[b] = 0
+            else:
+                qlens[b], w[b] = Lq, 1
+    plain = np.where(np.eye(5, dtype=bool), 1, -2)
+    plain[4, :] = plain[:, 4] = -1
+    mats = np.stack([opt.gamat, opt.ctmat, plain])
+    msel = rng.integers(0, 3, B)
+    return tuple(a.astype(np.int32) for a in (q, qlens, t, tlens, mats, msel, w))
 
 
 def local_edge_case(seed, B, Lq, Lt, a=1, b_pen=2):
