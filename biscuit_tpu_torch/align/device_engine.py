@@ -17,8 +17,9 @@ Batch flow per call:
      lane at -v4, run the host chain.mem_chain. Then host chain filtering
   5. device: banded extension (ops/sw_extend, K1), scheduled in rounds
      across lanes
-  6. device: global alignment + traceback for every region SAM will print,
-     one launch a chunk (ops/sw_global.sw_global_cigar, K2); lanes whose
+  6. device: global alignment + traceback for every region SAM may print
+     (a superset), one launch a chunk (ops/sw_global.sw_global_cigar, K2),
+     into a cache that worker2's alnreg_setSAM calls read; lanes whose
      traceback overflows max_ops are realigned by the scalar sw.sw_global
   7. PE only, over the whole chunk: host insert-size statistics (pestat),
      then batched mate rescue (region.matesw_batch), every candidate's
@@ -31,6 +32,7 @@ plain torch versions. The three DP kernels (K1, K7, K2) take a query of
 any width the engine meets: past the widest compiled strip they run their
 wide instance, on the card like the others.
 """
+import copy
 import os
 import time
 from typing import Dict, List, Tuple
@@ -63,8 +65,11 @@ _STAGE_T: Dict[str, float] = {}
 # chaining lanes over the scan's KMAX, JMAX or NC (chain.mem_chain),
 # global-alignment lanes whose traceback overflowed max_ops (sw.sw_global).
 # rescue_lanes: the lanes sent to K7, forward and reverse passes together.
+# cigar_late_lanes: global alignments that worker2 asked for and the CIGAR
+# prefill had not computed, run then through K2 on the device.
 _COUNTS = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
-           "traceback_overflow_lanes": 0, "rescue_lanes": 0}
+           "traceback_overflow_lanes": 0, "rescue_lanes": 0,
+           "cigar_late_lanes": 0}
 # stages whose work runs on the device, as the JAX engine counts them
 _DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue")
 
@@ -384,27 +389,33 @@ class _PendingSW(Exception):
     """Raised by the recording global_fn: the request joined the batch."""
 
 
-def prefill_setSAM(opt: MemOpt, idx, dev: DeviceAligner, items) -> None:
-    """Fill reg.cigar/NM/ZC/ZR/md for every (seq, reg) on the device before
-    reg2sam runs (alnreg_setSAM is idempotent: prefilled regions are
-    skipped by the host calls, any missed region is computed on the host).
+def prefill_setSAM(opt: MemOpt, idx, dev: DeviceAligner, items) -> Dict:
+    """The global alignments (score, cigar) of every (seq, reg) in `items`,
+    computed on the device before reg2sam runs: a cache keyed by (id of
+    the region, band). The regions themselves are left as they are, so
+    that reg2sam formats only what the host engine formats; its
+    alnreg_setSAM calls read the cache through `cigar_fn`.
 
     The band-doubling retry loop of mem_alnreg_setSAM
-    (mem_alnreg_format.c:56-70) is driven at batch level: each round
-    re-enters alnreg_setSAM with a cache-backed global_fn; an uncached
-    (region, w) records its request and raises, and the round's requests
-    run as ONE device sweep."""
-    cache = {}
-    pending = [(s, r) for s, r in items if r.n_cigar == 0]
+    (mem_alnreg_format.c:56-70) is driven at batch level on shallow copies
+    of the regions: each round re-enters alnreg_setSAM with a cache-backed
+    global_fn; an uncached (region, w) records its request and raises,
+    and the round's requests run as ONE device sweep. A cached one answers
+    with its score and no CIGAR: the loop reads only the score, and
+    gen_cigar then skips the MD and NM work that worker2 does once for the
+    regions it formats."""
+    cache: Dict = {}
+    pending = [(s, copy.copy(r), id(r)) for s, r in items
+               if r.n_cigar == 0 and _needs_global(opt, r)]
     while pending:
         requests = []
         seen = set()
 
-        def make_fn(reg):
-            def fn(query, rseq, w):
-                key = (id(reg), int(w))
+        def make_fn(orig):
+            def fn(reg, query, rseq, w):
+                key = (orig, int(w))
                 if key in cache:
-                    return cache[key]
+                    return cache[key][0], None
                 if key not in seen:
                     seen.add(key)
                     requests.append((key, query, rseq, int(w), reg.parent))
@@ -412,16 +423,45 @@ def prefill_setSAM(opt: MemOpt, idx, dev: DeviceAligner, items) -> None:
             return fn
 
         nxt = []
-        for seq, reg in pending:
+        for seq, shadow, orig in pending:
             try:
-                sammod.alnreg_setSAM(opt, idx, seq, reg,
-                                     global_fn=make_fn(reg))
+                sammod.alnreg_setSAM(opt, idx, seq, shadow,
+                                     global_fn=make_fn(orig))
             except _PendingSW:
-                nxt.append((seq, reg))
+                nxt.append((seq, shadow, orig))
         if not requests:
             break
         cache.update(dev.sw_global_batch(opt, requests))
         pending = nxt
+    return cache
+
+
+def _needs_global(opt: MemOpt, reg) -> bool:
+    """Whether alnreg_setSAM asks for a global alignment of `reg`: not when
+    its first band is 0 and query and reference are of one length, where
+    gen_cigar scores the ungapped alignment itself (and the band, doubled,
+    stays 0). Its first lines, mem_alnreg_format.c:47-52."""
+    lq, lr = reg.qe - reg.qb, reg.re - reg.rb
+    w = max(sammod.infer_bw(lq, lr, reg.truesc, opt.a, opt.o_del, opt.e_del),
+            sammod.infer_bw(lq, lr, reg.truesc, opt.a, opt.o_ins, opt.e_ins))
+    return not (w == 0 and lq == lr)
+
+
+def cigar_fn(opt: MemOpt, dev: DeviceAligner, cache: Dict):
+    """The global_fn of worker2: (reg, query, rseq, w) -> (score, cigar)
+    from the prefill's cache. A (region, band) the prefill did not compute
+    runs then through K2 on the engine's device, counted in
+    cigar_late_lanes (0 while the candidates over-approximate what reg2sam
+    formats)."""
+    def fn(reg, query, rseq, w):
+        key = (id(reg), int(w))
+        hit = cache.get(key)
+        if hit is None:
+            _COUNTS["cigar_late_lanes"] += 1
+            hit = cache[key] = dev.sw_global_batch(
+                opt, [(key, query, rseq, int(w), reg.parent)])[key]
+        return hit
+    return fn
 
 
 def _setSAM_candidates(opt: MemOpt, seq, regs):
@@ -480,13 +520,15 @@ def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     # interleave setSAM output in host order; PE then rescues on the host,
     # in worker2_pe)
     prefill = trace.verbose < 4
+    global_fn = None
     if not pe:
         if prefill:
             with _stage("cigar"):
-                _prefill(opt, st, engine, seqs, all_regs)
+                global_fn = _prefill(opt, st, engine, seqs, all_regs)
         with _stage("worker2"):
             for i, s in enumerate(seqs):
-                worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id)
+                worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id,
+                           global_fn=global_fn)
         return
     n_pairs = len(seqs) >> 1
     # the insert-size statistics span the whole chunk (bwamem.c:464-467)
@@ -503,16 +545,18 @@ def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
                 matesw_batch(opt, st.idx, pes, pairs,
                              engine.sw_local_batch_fn(opt))
         with _stage("cigar"):
-            _prefill(opt, st, engine, seqs, all_regs)
+            global_fn = _prefill(opt, st, engine, seqs, all_regs)
     with _stage("worker2"):
         for i, (sq, rp) in enumerate(pairs):
             worker2_pe(opt, st, sq, rp, pes, n_processed, i, rg_id,
-                       skip_rescue=prefill)
+                       skip_rescue=prefill, global_fn=global_fn)
 
 
 def _prefill(opt: MemOpt, st: AlignerState, engine: DeviceAligner, seqs,
-             all_regs) -> None:
+             all_regs):
+    """worker2's global_fn, over the global alignments of every candidate
+    region computed on the device."""
     items = []
     for i, s in enumerate(seqs):
         items.extend(_setSAM_candidates(opt, s, all_regs[i]))
-    prefill_setSAM(opt, st.idx, engine, items)
+    return cigar_fn(opt, engine, prefill_setSAM(opt, st.idx, engine, items))

@@ -6,10 +6,13 @@ mem_process_seqs (lib/aln/bwamem.c:161-476) and main_align
 (align.c:319-598). This is the host orchestration path (exact semantics);
 the batched TPU device path plugs in at the seeding/extension stages.
 
-Copy of biscuit_tpu/align/pipeline.py. Only its imports differ: FMNumpy comes
+Copy of biscuit_tpu/align/pipeline.py. Its imports differ: FMNumpy comes
 from biscuit_tpu_torch.ops.fm and every other module from this package,
-so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
-copy to its source.
+so the port imports nothing of the JAX package. And worker2_se /
+worker2_pe take a `global_fn` of the port's own, which they hand to
+sam.reg2sam_se / reg2sam_pe (the device engine's cached global
+alignments). tests/test_torch_engine.py holds the copy to its source,
+that argument left out.
 """
 import sys
 from typing import List, Optional
@@ -106,18 +109,20 @@ def worker1_pe(opt: MemOpt, st: AlignerState, s1: BSeq, s2: BSeq):
 
 
 def worker2_se(opt: MemOpt, st: AlignerState, seq: BSeq, regs: AlnRegs,
-               n_processed: int, i: int, rg_id: str = "") -> None:
+               n_processed: int, i: int, rg_id: str = "",
+               global_fn=None) -> None:
     if trace.verbose >= 4:
         trace.out("\n=====> [bis_worker2] Finalizing SE read '%s' <=====\n" % seq.name)
     mark_primary(opt, regs, n_processed + i)
     for r in regs:
         r.flag = 0
-    seq.sam = sammod.reg2sam_se(opt, st.idx, seq, regs, rg_id)
+    seq.sam = sammod.reg2sam_se(opt, st.idx, seq, regs, rg_id,
+                                global_fn=global_fn)
 
 
 def worker2_pe(opt: MemOpt, st: AlignerState, seqs, regs_pair, pes: PeStat,
                n_processed: int, i: int, rg_id: str = "",
-               skip_rescue: bool = False) -> None:
+               skip_rescue: bool = False, global_fn=None) -> None:
     """skip_rescue: the device engine runs matesw itself for the whole
     batch before prefilling cigars on device; rescue must run once."""
     if trace.verbose >= 4:
@@ -135,7 +140,7 @@ def worker2_pe(opt: MemOpt, st: AlignerState, seqs, regs_pair, pes: PeStat,
         for r in rp:
             r.flag = 0
     s1, s2 = sammod.reg2sam_pe(opt, st.idx, (n_processed >> 1) + i, seqs,
-                               regs_pair, pes, rg_id)
+                               regs_pair, pes, rg_id, global_fn=global_fn)
     seqs[0].sam = s1
     seqs[1].sam = s2
 

@@ -5,12 +5,18 @@ Ports bis_bwa_gen_cigar2 (lib/aln/bwa.c:290-428),
 mem_alnreg_setSAM / formatSAM / select_format / reg2sam_{se,pe}
 (mem_alnreg_format.c), and mem_approx_mapq_se (bwamem.c:134-157).
 
-Copy of biscuit_tpu/align/sam.py. Only its imports differ: FMNumpy comes
+Copy of biscuit_tpu/align/sam.py. Its imports differ: FMNumpy comes
 from biscuit_tpu_torch.ops.fm and every other module from this package,
-so the port imports nothing of the JAX package. tests/test_torch_engine.py holds the
-copy to its source.
+so the port imports nothing of the JAX package. And one argument is the
+port's own: `global_fn`, which reg2sam_se / reg2sam_pe /
+reg2sam_pe_nopairing take and hand, through select_format, format_sam and
+_tag_XAXB, to every alnreg_setSAM call, and which alnreg_setSAM calls with
+the region it formats (the device engine's cached global alignments).
+tests/test_torch_engine.py holds the copy to its source, that argument
+left out.
 """
 import math
+from functools import partial
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -179,8 +185,12 @@ def alnreg_setSAM(opt: MemOpt, idx, seq, reg: AlnReg,
     res = None
     for i in range(3):
         w = min(w, opt.w << 2)
+        # the port's global_fn(reg, query, rseq, w) learns the region it
+        # aligns for: the device engine's cache is keyed by region and band
         res = gen_cigar(opt, idx, query[reg.qb:reg.qe], reg.rb, reg.re,
-                        reg.parent, w, global_fn=global_fn)
+                        reg.parent, w, global_fn=(
+                            None if global_fn is None
+                            else partial(global_fn, reg)))
         if trace.verbose >= 4:
             trace.out("[mem_alnreg_setSAM] w=%d, global_sc=%d, local_sc=%d\n"
                       % (w, res.score, reg.truesc))
@@ -269,7 +279,7 @@ def _cigar_str(cigar, is_primary, opt, is_alt, is_rev=False) -> str:
 
 
 def _tag_XAXB(opt: MemOpt, idx, seq, p0: AlnReg, regs0: Optional[AlnRegs],
-              out: List[str]) -> None:
+              out: List[str], global_fn=None) -> None:
     """mem_alnreg_tagXAXB (mem_alnreg_format.c:126-191)."""
     if regs0 is None or (opt.flag & MEM_F_ALL):
         return
@@ -289,7 +299,7 @@ def _tag_XAXB(opt: MemOpt, idx, seq, p0: AlnReg, regs0: Optional[AlnRegs],
             if r < 0 or regs0[r] is not p0:
                 continue
             if q.n_cigar == 0:
-                alnreg_setSAM(opt, idx, seq, q)
+                alnreg_setSAM(opt, idx, seq, q, global_fn=global_fn)
                 if q.n_cigar == 0:
                     continue
             cig = "".join(f"{ln}{'MIDSHN'[op]}" for op, ln in q.cigar)
@@ -323,7 +333,7 @@ _COMP_TBL = bytes(ord(COMP_BASES[min(i, 4)]) for i in range(256))
 
 def format_sam(opt: MemOpt, idx, seq, p0: AlnReg, m0: Optional[AlnReg],
                regs0: Optional[AlnRegs], is_primary: int,
-               pes=None, rg_id: str = "") -> str:
+               pes=None, rg_id: str = "", global_fn=None) -> str:
     """mem_alnreg_formatSAM (mem_alnreg_format.c:237-436)."""
     import copy
     p = copy.copy(p0)
@@ -434,7 +444,7 @@ def format_sam(opt: MemOpt, idx, seq, p0: AlnReg, m0: Optional[AlnReg],
         out.append("\tPA:f:%.3f" % (p.score / p.alt_sc))
     out.append(f"\tXL:i:{seq.l_seq}")
     if regs0 is not None:
-        _tag_XAXB(opt, idx, seq, p0, regs0, out)
+        _tag_XAXB(opt, idx, seq, p0, regs0, out, global_fn=global_fn)
     if (opt.flag & MEM_F_REF_HDR) and p.rid >= 0 and idx.anns[p.rid].anno \
             and idx.anns[p.rid].anno != "":
         out.append("\tXR:Z:" + idx.anns[p.rid].anno.replace("\t", " "))
@@ -454,7 +464,8 @@ def format_sam(opt: MemOpt, idx, seq, p0: AlnReg, m0: Optional[AlnReg],
     return "".join(out)
 
 
-def select_format(opt: MemOpt, idx, seq, regs: AlnRegs) -> List[int]:
+def select_format(opt: MemOpt, idx, seq, regs: AlnRegs,
+                  global_fn=None) -> List[int]:
     """mem_alnreg_select_format (mem_alnreg_format.c:445-488)."""
     to_output = []
     l = 0
@@ -476,7 +487,7 @@ def select_format(opt: MemOpt, idx, seq, regs: AlnRegs) -> List[int]:
         p.mapq = mapq_se(opt, p) if p.secondary < 0 else 0
         if not (opt.flag & MEM_F_KEEP_SUPP_MAPQ) and l and not p.is_alt:
             p.mapq = min(p.mapq, regs[0].mapq)
-        alnreg_setSAM(opt, idx, seq, p)
+        alnreg_setSAM(opt, idx, seq, p, global_fn=global_fn)
         to_output.append(k)
         l += 1
     return to_output
@@ -487,7 +498,7 @@ def raw_mapq(diff: int, a: int) -> int:
 
 
 def reg2sam_pe_nopairing(opt: MemOpt, idx, seqs, regs_pair, pes,
-                         rg_id: str = "") -> Tuple[str, str]:
+                         rg_id: str = "", global_fn=None) -> Tuple[str, str]:
     """mem_reg2sam_pe_nopairing (mem_alnreg_format.c:519-559)."""
     if trace.verbose >= 4:
         trace.out("PE no pairing.\n")
@@ -495,7 +506,7 @@ def reg2sam_pe_nopairing(opt: MemOpt, idx, seqs, regs_pair, pes,
     to_outputs = []
     for i in range(2):
         regs = regs_pair[i]
-        to = select_format(opt, idx, seqs[i], regs)
+        to = select_format(opt, idx, seqs[i], regs, global_fn=global_fn)
         to_outputs.append(to)
         if to:
             best[i] = regs[to[0]]
@@ -513,16 +524,17 @@ def reg2sam_pe_nopairing(opt: MemOpt, idx, seqs, regs_pair, pes,
             for j, k in enumerate(to_outputs[i]):
                 p = regs[k]
                 parts.append(format_sam(opt, idx, seqs[i], p, best[1 - i], regs,
-                                        1 if j == 0 else 0, pes, rg_id))
+                                        1 if j == 0 else 0, pes, rg_id,
+                                        global_fn=global_fn))
             sams.append("".join(parts))
         else:
             sams.append(format_sam(opt, idx, seqs[i], best[i], best[1 - i],
-                                   None, 1, pes, rg_id))
+                                   None, 1, pes, rg_id, global_fn=global_fn))
     return sams[0], sams[1]
 
 
 def reg2sam_pe(opt: MemOpt, idx, pair_id: int, seqs, regs_pair, pes,
-               rg_id: str = "") -> Tuple[str, str]:
+               rg_id: str = "", global_fn=None) -> Tuple[str, str]:
     """mem_reg2sam_pe (mem_alnreg_format.c:562-696)."""
     import math as _math
     from .pair import mem_pair
@@ -536,9 +548,11 @@ def reg2sam_pe(opt: MemOpt, idx, pair_id: int, seqs, regs_pair, pes,
         for r in regs_pair[i]:
             r.flag |= (0x40 << i) | 1
     if opt.flag & MEM_F_NOPAIRING:
-        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id)
+        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id,
+                                    global_fn=global_fn)
     if regs_pair[0].n_pri == 0 or regs_pair[1].n_pri == 0:
-        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id)
+        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id,
+                                    global_fn=global_fn)
 
     # multi-hit check
     is_multi = [False, False]
@@ -550,19 +564,21 @@ def reg2sam_pe(opt: MemOpt, idx, pair_id: int, seqs, regs_pair, pes,
             j += 1
         is_multi[i] = j < regs_pair[i].n_pri
     if is_multi[0] or is_multi[1]:
-        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id)
+        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id,
+                                    global_fn=global_fn)
 
     pscore, sub_pscore, n_subpairings, z = mem_pair(opt, idx, pes, regs_pair, pair_id)
     if pscore <= 0:
-        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id)
+        return reg2sam_pe_nopairing(opt, idx, seqs, regs_pair, pes, rg_id,
+                                    global_fn=global_fn)
 
     if trace.verbose >= 4:
         # mem_alnreg_format.c:605-611: setSAM is invoked early here (idempotent)
         # so the paired regions' pos fields are printable
         p1 = regs_pair[0][z[0]]
         p2 = regs_pair[1][z[1]]
-        alnreg_setSAM(opt, idx, seqs[0], p1)
-        alnreg_setSAM(opt, idx, seqs[1], p2)
+        alnreg_setSAM(opt, idx, seqs[0], p1, global_fn=global_fn)
+        alnreg_setSAM(opt, idx, seqs[1], p2, global_fn=global_fn)
         trace.out("** pairing read 1: %d, [%d,%d) <=> [%d,%d,%s,%d) <> "
                   "read 2: %d, [%d,%d) <=> [%d,%d,%s,%d)\n"
                   % (p1.score, p1.qb, p1.qe, p1.rb, p1.re,
@@ -611,34 +627,39 @@ def reg2sam_pe(opt: MemOpt, idx, pair_id: int, seqs, regs_pair, pes,
             regs[z[i]].secondary_all = -1
 
     for i in range(2):
-        alnreg_setSAM(opt, idx, seqs[i], regs_pair[i][z[i]])
+        alnreg_setSAM(opt, idx, seqs[i], regs_pair[i][z[i]],
+                      global_fn=global_fn)
 
     sams = []
     for i in range(2):
         regs = regs_pair[i]
         reg = regs[z[i]]
         mreg = regs_pair[1 - i][z[1 - i]]
-        parts = [format_sam(opt, idx, seqs[i], reg, mreg, regs, 1, pes, rg_id)]
+        parts = [format_sam(opt, idx, seqs[i], reg, mreg, regs, 1, pes, rg_id,
+                            global_fn=global_fn)]
         if regs.n_pri < len(regs):
             p = regs[regs.n_pri]
             if p.score >= opt.T and p.secondary < 0:
                 p.flag |= 0x800
-                alnreg_setSAM(opt, idx, seqs[i], p)
-                parts.append(format_sam(opt, idx, seqs[i], p, None, regs, 0, pes, rg_id))
+                alnreg_setSAM(opt, idx, seqs[i], p, global_fn=global_fn)
+                parts.append(format_sam(opt, idx, seqs[i], p, None, regs, 0, pes,
+                                        rg_id, global_fn=global_fn))
         sams.append("".join(parts))
     return sams[0], sams[1]
 
 
-def reg2sam_se(opt: MemOpt, idx, seq, regs: AlnRegs, rg_id: str = "") -> str:
+def reg2sam_se(opt: MemOpt, idx, seq, regs: AlnRegs, rg_id: str = "",
+               global_fn=None) -> str:
     """mem_reg2sam_se (mem_alnreg_format.c:492-515)."""
-    to_output = select_format(opt, idx, seq, regs)
+    to_output = select_format(opt, idx, seq, regs, global_fn=global_fn)
     if to_output:
         return "".join(
             format_sam(opt, idx, seq, regs[k], None, regs, 1 if i == 0 else 0,
-                       None, rg_id)
+                       None, rg_id, global_fn=global_fn)
             for i, k in enumerate(to_output))
     reg = AlnReg()
     reg.rid = -1
     reg.flag = 0x4
     reg.sub = 0
-    return format_sam(opt, idx, seq, reg, None, regs, 1, None, rg_id)
+    return format_sam(opt, idx, seq, reg, None, regs, 1, None, rg_id,
+                      global_fn=global_fn)

@@ -64,7 +64,8 @@ def _nvcc() -> str:
 def kernel_label(mangled: str) -> str:
     """`sw_extend_kernel<5>` from the mangled name ptxas prints: the last of
     its nested length-prefixed identifiers, with its template arguments
-    where they are int or long types or integer or bool literals."""
+    where they are int, long or unsigned char types or integer or bool
+    literals."""
     m = re.match(r"_ZN?", mangled)
     label, rest = None, mangled[m.end():] if m else ""
     while True:  # nested names, each prefixed with its length
@@ -75,11 +76,11 @@ def kernel_label(mangled: str) -> str:
         rest = rest[m.end() + int(m.group()):]
     if label is None:
         return mangled
-    t = re.match(r"I((?:[il]|L[ib]\d+E)+)E", rest)
+    t = re.match(r"I((?:[ilh]|L[ib]\d+E)+)E", rest)
     if t:
-        args = [{"i": "int", "l": "long", "Lb0E": "false",
+        args = [{"i": "int", "l": "long", "h": "unsigned char", "Lb0E": "false",
                  "Lb1E": "true"}.get(a, a[2:-1])
-                for a in re.findall(r"[il]|L[ib]\d+E", t.group(1))]
+                for a in re.findall(r"[ilh]|L[ib]\d+E", t.group(1))]
         label += "<" + ", ".join(args) + ">"
     return label
 

@@ -1,27 +1,41 @@
-// K6 chain_scan: mem_chain's B-tree scan for a batch of lanes, one thread
-// per lane.
+// K6 chain_scan: mem_chain's B-tree scan for a batch of lanes, a warp a
+// lane.
 //
 // Replaces the XLA while_loop chain_scan_batch
-// (biscuit_tpu/ops/chain_batch.py), which advanced every lane by one
-// occurrence per step over [NC, B] chain planes, with one-hot selects for
-// every lookup and a full shift of all planes for every insert. Here each
-// thread walks its own lane's occurrences in order and keeps its chains
-// sorted by position in local arrays (NC <= 64 slots of pos, cid, crid, fq,
-// fr, lq, lr, ll): the lower neighbour (bisect_right - 1) is a binary search
-// and an insert moves only the slots after it. Outputs are the JAX ones: the
-// action log [J, B] (chain_id << 2 | kind, 0 where nothing happened, at
-// every step up to J) and the capacity flag ov [B] of a lane that would
-// need more than NC chains. The `allow` rule replays memchain.c:326, and
-// the containment, `pacrej` and `apnd` tests run in the rank dtype as the
-// JAX machine does.
+// (biscuit_tpu/ops/chain_batch.py), which advances every lane by one
+// occurrence per step over [NC, B] chain planes held sorted by position.
+// Outputs are the JAX ones: the action log [J, B] (chain_id << 2 | kind, 0
+// where nothing happened, at every step up to J) and the capacity flag
+// ov [B] of a lane that would need more than NC chains. The `allow` rule
+// replays memchain.c:326, and the containment, `pacrej` and `apnd` tests
+// run in the rank dtype as the JAX machine does.
 //
-// What bounds it on an H100: one pass over the J-major occurrence planes,
-// 6 words per occurrence, each read once; thread b reading plane[j, b]
-// makes a warp's loads of one step contiguous. The chain slots spill to
-// local memory (about 2.8 KB a thread for int64 ranks), which the L1 holds
-// for the few warps a batch of a few thousand lanes puts on an SM. The
-// per-lane work is a serial dependence (each step reads the chains the
-// previous one wrote), so lanes are the only parallelism.
+// Design: the plane machine, with the planes in registers. Slot s of a
+// lane's sorted chains lives in register s / 32 of thread s % 32 of the
+// lane's warp (NC_MAX / 32 registers a field; a chain's first reference
+// position is its sort key, so no separate key is kept). A step:
+//  - the lower neighbour: ins = popc(ballot(s < n && fr[s] <= rb)) over
+//    the warp's slots (the chains are sorted, so that is bisect_right), as
+//    the plane machine's ((slots < n) & (pos <= rb)).sum(0); jn = ins - 1;
+//  - the merge test (memchain.c:227-256, in its exact order) runs on each
+//    thread's register jn / 32, picked by selects, so every thread tests a
+//    chain of its own in the same instructions; the thread that holds slot
+//    jn has chain jn, applies an append, and its verdict reaches the warp
+//    in one shuffle (one shuffle, where broadcasting chain jn's fields to
+//    test it once would take one a field);
+//  - a new chain is inserted at ins: every field moves up one slot, one
+//    shuffle a register (slot s takes slot s - 1: thread t - 1's register,
+//    or for thread 0 thread 31's register below), and slot ins takes the
+//    new chain.
+// A block stages its lanes' occurrence planes into shared memory in chunks
+// of JC columns with loads that run along b, and writes its log back the
+// same way, so any J (CHAIN_JMAX = 1024) streams through.
+//
+// What bounds it on an H100: each lane is a serial chain of J steps (a step
+// reads the chains the last one wrote), about a hundred instructions a
+// step; the bytes (six words an occurrence in, one out) are far below.
+// Lanes are the parallelism, a lane's chain of steps the latency: the
+// card holds 24 lanes an SM (80 registers, three blocks of 8 lanes).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,85 +43,155 @@ namespace {
 
 constexpr int NC_MAX = 64;
 constexpr int K_NEW = 1, K_APPEND = 2, K_EXTRA = 3;
+constexpr int THREADS = 256;
+constexpr int JC = 32;  // columns staged at a time
+constexpr int K = NC_MAX / 32;  // slots a thread
+constexpr int LB = THREADS / 32;  // lanes a block
+constexpr unsigned FULL = 0xffffffffu;
 
+// a[r] for a runtime r: a chain of selects, so that `a` stays in registers
+template <int N, typename V>
+__device__ __forceinline__ V pick(const V (&a)[N], int r) {
+  V v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = k == r ? a[k] : v;
+  return v;
+}
+
+// The warp's slots of one field (slot k * 32 + t in a[k] of thread t) from
+// `ins` on move up by one and slot ins takes v: slot s takes slot s - 1,
+// thread t - 1's register k, or for t == 0 (then k >= 1) thread 31's
+// register k - 1. One shuffle a register.
+template <typename V>
+__device__ __forceinline__ void shift_in(V (&a)[K], V v, int ins, int t) {
+  const int from = (t + 31) & 31;
+  V x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = __shfl_sync(FULL, a[k], from);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = k * 32 + t;
+    const V prev = t > 0 ? x[k] : x[k > 0 ? k - 1 : 0];
+    a[k] = s > ins ? prev : (s == ins ? v : a[k]);
+  }
+}
+
+// held to 80 registers, three blocks (24 warps) an SM
 template <typename R>
-__global__ void chain_scan_kernel(const int32_t* __restrict__ qbeg,
-                                  const int32_t* __restrict__ slen,
-                                  const R* __restrict__ rbeg,
-                                  const int32_t* __restrict__ valid,
-                                  const int32_t* __restrict__ rid,
-                                  const int32_t* __restrict__ kocc,
-                                  const int32_t* __restrict__ n_occ, int64_t J,
-                                  int64_t B, R l_pac, int w, int max_gap,
-                                  int max_occ, int NC,
-                                  int32_t* __restrict__ log,
-                                  bool* __restrict__ ov_out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  R pos[NC_MAX], fr[NC_MAX], lr[NC_MAX];
-  int32_t cid[NC_MAX], crid[NC_MAX], fq[NC_MAX], lq[NC_MAX], ll[NC_MAX];
+__global__ void __launch_bounds__(THREADS, 3)
+chain_scan_kernel(const int32_t* __restrict__ qbeg,
+                  const int32_t* __restrict__ slen, const R* __restrict__ rbeg,
+                  const int32_t* __restrict__ valid,
+                  const int32_t* __restrict__ rid,
+                  const int32_t* __restrict__ kocc,
+                  const int32_t* __restrict__ n_occ, int64_t J, int64_t B,
+                  R l_pac, int w, int max_gap, int max_occ, int NC,
+                  int32_t* __restrict__ log, bool* __restrict__ ov_out) {
+  __shared__ int32_t s_qb[JC][LB], s_ln[JC][LB], s_vd[JC][LB], s_rid[JC][LB],
+      s_k[JC][LB], s_log[JC][LB];
+  __shared__ R s_rb[JC][LB];
+  __shared__ int s_jmax;
+
+  const int t = threadIdx.x & 31;
+  const int l = threadIdx.x / 32;  // the lane within the block, its warp
+  const int64_t b0 = (int64_t)blockIdx.x * LB;
+  const int64_t b = b0 + l;
+  const bool live = b < B;
+  const int no = live ? n_occ[b] : 0;
+  if (threadIdx.x == 0) s_jmax = 0;
+  __syncthreads();
+  if (t == 0 && no > 0) atomicMax(&s_jmax, no);
+  __syncthreads();
+  const int64_t jmax = s_jmax;
+
+  // the lane's chains, slot k * 32 + t in register k; fr is the sort key
+  R fr[K], lr[K];
+  int32_t cid[K], crid[K], fq[K], lq[K], ll[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    fr[k] = lr[k] = 0;
+    cid[k] = crid[k] = fq[k] = lq[k] = ll[k] = 0;
+  }
   int n = 0, cnt = 0;
   bool ov = false;
-  const int64_t no = n_occ[b];
-  for (int64_t col = 0; col < J; ++col) {
-    const int64_t o = col * B + b;
-    int32_t entry = 0;
-    if (col < no) {
-      const int32_t qb = qbeg[o], ln = slen[o], ro = rid[o], kk = kocc[o];
-      const R rb = rbeg[o];
-      const int cnt0 = kk == 0 ? 0 : cnt;
-      const bool allow = cnt0 < max_occ && (cnt0 <= 5 || kk < max_occ);
-      bool do_new = false;
-      if (valid[o] != 0 && !ov && allow) {
-        int lo = 0, hi = n;  // ins = number of chains with pos <= rb
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (pos[mid] <= rb) lo = mid + 1;
-          else hi = mid;
-        }
-        const int ins = lo, jn = lo - 1;
-        bool merged = false;
-        if (jn >= 0 && crid[jn] == ro) {
-          // merge_seed_to_chain (memchain.c:227-256), in its exact order
-          const R lnr = (R)ln, cllr = (R)ll[jn];
-          if (qb >= fq[jn] && qb + ln <= lq[jn] + ll[jn] && rb >= fr[jn] &&
-              rb + lnr <= lr[jn] + cllr) {
-            entry = (cid[jn] << 2) | K_EXTRA;
-            merged = true;
-          } else {
-            const bool pacrej = (lr[jn] < l_pac || fr[jn] < l_pac) &&
-                                rb >= l_pac;
-            const R qd = (R)(qb - lq[jn]), rd = rb - lr[jn];
-            if (!pacrej && rd >= 0 && qd - rd <= w && rd - qd <= w &&
-                qd - cllr < max_gap && rd - cllr < max_gap) {
-              lq[jn] = qb;
-              lr[jn] = rb;
-              ll[jn] = ln;
-              entry = (cid[jn] << 2) | K_APPEND;
-              merged = true;
+
+  for (int64_t c0 = 0; c0 < J; c0 += JC) {
+    const int cols = (int)(J - c0 < JC ? J - c0 : JC);
+    // columns some lane of the block has: those are staged
+    const int busy = (int)(jmax - c0 < cols ? (jmax > c0 ? jmax - c0 : 0) : cols);
+    if (busy) {  // uniform over the block
+      for (int i = threadIdx.x; i < busy * LB; i += THREADS) {
+        const int j = i / LB, lb = i % LB;
+        if (b0 + lb >= B) continue;
+        const int64_t o = (c0 + j) * B + b0 + lb;
+        s_qb[j][lb] = qbeg[o];
+        s_ln[j][lb] = slen[o];
+        s_rb[j][lb] = rbeg[o];
+        s_vd[j][lb] = valid[o];
+        s_rid[j][lb] = rid[o];
+        s_k[j][lb] = kocc[o];
+      }
+      __syncthreads();
+    }
+    for (int j = 0; j < cols; ++j) {
+      const int64_t col = c0 + j;
+      int32_t entry = 0;
+      if (col < no) {  // uniform over the warp
+        const int32_t qb = s_qb[j][l], ln = s_ln[j][l], ro = s_rid[j][l],
+                      kk = s_k[j][l];
+        const R rb = s_rb[j][l];
+        const int cnt0 = kk == 0 ? 0 : cnt;
+        const bool allow = cnt0 < max_occ && (cnt0 <= 5 || kk < max_occ);
+        bool do_new = false;
+        if (s_vd[j][l] != 0 && !ov && allow) {
+          int ins = 0;
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            ins += __popc(__ballot_sync(FULL, k * 32 + t < n && fr[k] <= rb));
+          const int jn = ins - 1, owner = jn & 31, r = jn / 32;
+          // merge_seed_to_chain (memchain.c:227-256), in its exact order, on
+          // each thread's register r: the owner's is chain jn. Its verdict
+          // (cid << 2 | kind, 0 where it does not merge) is the warp's.
+          const R c_fr = pick(fr, r), c_lr = pick(lr, r);
+          const int32_t c_fq = pick(fq, r), c_lq = pick(lq, r),
+                        c_ll = pick(ll, r);
+          int verdict = 0;
+          bool app = false;
+          if (jn >= 0 && pick(crid, r) == ro) {
+            const R lnr = (R)ln, cllr = (R)c_ll;
+            if (qb >= c_fq && qb + ln <= c_lq + c_ll && rb >= c_fr &&
+                rb + lnr <= c_lr + cllr) {
+              verdict = (pick(cid, r) << 2) | K_EXTRA;
+            } else {
+              const bool pacrej = (c_lr < l_pac || c_fr < l_pac) && rb >= l_pac;
+              const R qd = (R)(qb - c_lq), rd = rb - c_lr;
+              app = !pacrej && rd >= 0 && qd - rd <= w && rd - qd <= w &&
+                    qd - cllr < max_gap && rd - cllr < max_gap;
+              if (app) verdict = (pick(cid, r) << 2) | K_APPEND;
             }
           }
-        }
-        if (!merged) {
-          if (n < NC) {
-            for (int s = n; s > ins; --s) {
-              pos[s] = pos[s - 1];
-              fr[s] = fr[s - 1];
-              lr[s] = lr[s - 1];
-              cid[s] = cid[s - 1];
-              crid[s] = crid[s - 1];
-              fq[s] = fq[s - 1];
-              lq[s] = lq[s - 1];
-              ll[s] = ll[s - 1];
+          verdict = __shfl_sync(FULL, verdict, owner);
+          if (verdict != 0) {
+            entry = verdict;
+            if (app && t == owner) {  // the chain's last seed becomes this one
+#pragma unroll
+              for (int k = 0; k < K; ++k) {
+                if (k == r) {
+                  lq[k] = qb;
+                  lr[k] = rb;
+                  ll[k] = ln;
+                }
+              }
             }
-            pos[ins] = rb;
-            fr[ins] = rb;
-            lr[ins] = rb;
-            cid[ins] = n;
-            crid[ins] = ro;
-            fq[ins] = qb;
-            lq[ins] = qb;
-            ll[ins] = ln;
+          } else if (n < NC) {
+            // slots >= ins move up by one, the new chain lands at ins
+            shift_in(fr, rb, ins, t);
+            shift_in(lr, rb, ins, t);
+            shift_in(cid, n, ins, t);
+            shift_in(crid, ro, ins, t);
+            shift_in(fq, qb, ins, t);
+            shift_in(lq, qb, ins, t);
+            shift_in(ll, ln, ins, t);
             entry = (n << 2) | K_NEW;
             ++n;
             do_new = true;
@@ -115,12 +199,18 @@ __global__ void chain_scan_kernel(const int32_t* __restrict__ qbeg,
             ov = true;
           }
         }
+        cnt = cnt0 + (do_new ? 1 : 0);
       }
-      cnt = cnt0 + (do_new ? 1 : 0);
+      if (t == 0) s_log[j][l] = entry;
     }
-    log[o] = entry;
+    __syncthreads();
+    for (int i = threadIdx.x; i < cols * LB; i += THREADS) {
+      const int j = i / LB, lb = i % LB;
+      if (b0 + lb < B) log[(c0 + j) * B + b0 + lb] = s_log[j][lb];
+    }
+    __syncthreads();
   }
-  ov_out[b] = ov;
+  if (live && t == 0) ov_out[b] = ov;
 }
 
 template <typename R>
@@ -129,9 +219,8 @@ int launch(const void* qbeg, const void* slen, const void* rbeg,
            const void* n_occ, int64_t J, int64_t B, int64_t l_pac, int w,
            int max_gap, int max_occ, int NC, void* log, void* ov,
            cudaStream_t stream) {
-  const int threads = 64;
-  const int64_t blocks = (B + threads - 1) / threads;
-  chain_scan_kernel<R><<<(unsigned)blocks, threads, 0, stream>>>(
+  const int64_t blocks = (B + LB - 1) / LB;
+  chain_scan_kernel<R><<<(unsigned)blocks, THREADS, 0, stream>>>(
       (const int32_t*)qbeg, (const int32_t*)slen, (const R*)rbeg,
       (const int32_t*)valid, (const int32_t*)rid, (const int32_t*)kocc,
       (const int32_t*)n_occ, J, B, (R)l_pac, w, max_gap, max_occ, NC,

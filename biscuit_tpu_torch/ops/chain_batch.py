@@ -10,9 +10,11 @@ reference's while condition (memchain.c:326) is replayed exactly by the
 `allow` rule; a lane that would need more than NC chains is flagged and
 reruns on the host.
 
-`chain_scan_batch` launches kernels/chain_scan.cu on a CUDA device (one
-thread per lane, its sorted chain slots in local memory) and runs
-`chain_scan_batch_plain`, the plane machine in torch, on the CPU. Both
+`chain_scan_batch` launches kernels/chain_scan.cu on a CUDA device (the
+same plane machine with the planes in registers: a warp a lane, slot s in
+thread s % 32; the lower neighbour a ballot, an insert a shuffle a
+register) and runs `chain_scan_batch_plain`, the plane machine in
+torch, on the CPU. Both
 return (log [J, B] int32 of chain_id << 2 | kind, ov [B] bool), with the
 `pacrej` and `apnd` arithmetic in the rank dtype of `occ_rbeg`.
 """
@@ -24,7 +26,8 @@ from .. import kernels
 
 # action log encoding: entry = chain_id << 2 | kind
 K_NONE, K_NEW, K_APPEND, K_EXTRA = 0, 1, 2, 3
-NC_MAX = 64  # chain slots a kernel thread holds
+NC_MAX = 64  # chain slots a kernel warp holds
+JC = 32      # occurrence columns the kernel stages at a time
 
 
 def chain_scan_batch_plain(occ_qbeg, occ_len, occ_rbeg, occ_valid, occ_rid,
@@ -123,7 +126,7 @@ def chain_scan_batch(occ_qbeg, occ_len, occ_rbeg, occ_valid, occ_rid, occ_k,
                      n_occ, l_pac: int, w: int, max_gap: int, max_occ: int,
                      NC: int = 64):
     """Chain scan over a batch: (log [J, B] int32, ov [B] bool). K6 on CUDA
-    (one thread per lane), the plain plane machine on the CPU."""
+    (a warp a lane), the plain plane machine on the CPU."""
     if kernels.route(occ_rbeg) == "plain":
         return chain_scan_batch_plain(occ_qbeg, occ_len, occ_rbeg, occ_valid,
                                       occ_rid, occ_k, n_occ, l_pac, w,
@@ -149,11 +152,19 @@ def chain_scan_batch(occ_qbeg, occ_len, occ_rbeg, occ_valid, occ_rid, occ_k,
     ov = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return log, ov
-    qbeg, ln, valid, rid, kocc = planes
+    _launch(*planes[:2], rbeg, *planes[2:], n_occ, l_pac, w, max_gap,
+            max_occ, NC, log, ov)
+    return log, ov
+
+
+def _launch(qbeg, ln, rbeg, valid, rid, kocc, n_occ, l_pac: int, w: int,
+            max_gap: int, max_occ: int, NC: int, log, ov) -> None:
+    """Launch K6 on checked, contiguous planes into log and ov. No host
+    sync."""
+    J, B = rbeg.shape
     fn = "chain_scan_wide" if rbeg.dtype == torch.int64 else "chain_scan_narrow"
-    kernels.launch(_lib(), fn, "chain_scan", dev,
+    kernels.launch(_lib(), fn, "chain_scan", rbeg.device,
                    kernels.ptr(qbeg), kernels.ptr(ln), kernels.ptr(rbeg),
                    kernels.ptr(valid), kernels.ptr(rid), kernels.ptr(kocc),
                    kernels.ptr(n_occ), J, B, int(l_pac), int(w), int(max_gap),
                    int(max_occ), NC, kernels.ptr(log), kernels.ptr(ov))
-    return log, ov

@@ -8,9 +8,10 @@ genome-axis sharded device path plugs in per-window.
 
 Copy of biscuit_tpu/pileup/engine.py with the count matrices of the
 vectorized window path made on a torch device: `_pileup_window_fast` takes
-the device and always calls `_device_counts`, which runs the window count
-scatter-add (ops/pileup_count.py: a CUDA kernel on the card, its plain
-version on the CPU). That is the source's BISCUIT_TPU_PILEUP=device path
+the device and always calls `_device_counts`, which makes the count
+matrices of a window in one call of the fused window count
+(ops/pileup_count.pileup_window_counts: a CUDA kernel on the card, its
+plain version on the CPU) over inputs staged in reused host buffers. That is the source's BISCUIT_TPU_PILEUP=device path
 made the only one; the switch, the numpy bincount branch, the sharded
 `_mesh_counts` and the C++ window engine (pileup/native.py) are left out.
 On a CUDA device `run_windows` takes the windows in order in the process
@@ -42,17 +43,19 @@ from .common import (BASE_A, BASE_C, BASE_G, BASE_N, BASE_R, BASE_T, BASE_Y,
 import numpy as np
 import torch
 
-from ..ops.pileup_count import pileup_count_window
+from ..ops.pileup_count import CB, CM, DP, N_WORDS, pileup_window_counts
 
 # seconds of the vectorized path in this process since reset_stages() (the
 # windows a CPU fork pool's workers compute are counted in the workers and
 # never reach the parent: only the in-process path is covered): open
 # (the CLI's reading of the BAMs and the reference into memory), read decode
 # (BAM fetch, filters, per-read base extraction), count (datum arrays to the
-# device, the two scatter-adds, counts back), emit (emit mask and
-# plp_format); with the windows that held data, their data and the VCF lines
+# device, the fused window count, counts back), emit (emit mask and
+# plp_format); with the windows that held data, their data, the VCF lines
+# and the chunks of data that the kernel counted in device memory for want
+# of room in its shared memory (none on the plain route)
 STAGES = {"open": 0.0, "decode": 0.0, "count": 0.0, "emit": 0.0, "windows": 0,
-          "data": 0, "sites": 0}
+          "data": 0, "sites": 0, "wide_chunks": 0}
 _COUNT_SPAN = None  # (entered, left) _device_counts in the current window
 
 
@@ -535,26 +538,64 @@ def _pileup_window_fast(bams: List[AlignmentFile], rs: RefCache, conf: PileupCon
     return "".join(out)
 
 
+# device -> (host input, device input, host counts): buffers reused from
+# window to window and grown as needed; pinned on a CUDA device
+_STAGING: Dict[str, tuple] = {}
+# a datum's stat (base << 4 | meth, below 0x70) to its code base * 3 + meth
+_CODE_OF_STAT = np.array([(s >> 4) * NSTATUS_METH + (s & 0xF)
+                          for s in range(256)], np.uint8)
+
+
+def _staged(device, n_in: int, n_out: int):
+    """The buffers of `device`: uint8 input of at least n_in bytes on the
+    host and on the device (one tensor on the CPU), int32 counts of at least
+    n_out words on the host."""
+    key = str(device)
+    bufs = _STAGING.get(key)
+    if bufs is None or bufs[0].numel() < n_in or bufs[2].numel() < n_out:
+        n_in = max(n_in * 5 // 4, bufs[0].numel() if bufs else 0)
+        n_out = max(n_out, bufs[2].numel() if bufs else 0)
+        cuda = torch.device(device).type == "cuda"
+        host = torch.empty(n_in, dtype=torch.uint8, pin_memory=cuda)
+        back = torch.empty(n_out, dtype=torch.int32, pin_memory=cuda)
+        dev = torch.empty(n_in, dtype=torch.uint8, device=device) if cuda else host
+        bufs = _STAGING[key] = (host, dev, back)
+    return bufs
+
+
 def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
-    """Count matrices on `device`: one scatter-add over a packed
-    (site*sample, base*3+meth) grid plus one depth pass. The datum arrays go
-    to the device once; the counts come back as int64 numpy arrays
+    """Count matrices on `device` in one call of the fused window count
+    (ops/pileup_count.pileup_window_counts): the datum arrays go to the
+    device once as 6 bytes a datum (int32 site * n_bams + sample, uint8
+    base * 3 + meth, the pass flag), staged in one host buffer; cm, cb and
+    the depth are summed there and come back as int64 numpy arrays
     cm [P, n_bams, 3], cb [P, n_bams, 7] and dp [P, n_bams]."""
     global _COUNT_SPAN
     entered = time.perf_counter()
-    comp = torch.from_numpy(p * n_bams + sid).to(device)
-    code = torch.from_numpy((stat >> 4) * NSTATUS_METH + (stat & 0xF)).to(device)
-    counts = pileup_count_window(comp, code, torch.from_numpy(passm).to(device),
-                                 P * n_bams, 32).cpu().numpy()
-    c = counts[:, :NSTATUS_BASE * NSTATUS_METH].reshape(
-        P, n_bams, NSTATUS_BASE, NSTATUS_METH)
-    cm = c.sum(axis=2).astype(np.int64)
-    cb = c.sum(axis=3).astype(np.int64)
-    dp_arr = pileup_count_window(
-        comp, torch.zeros_like(comp),
-        torch.ones(len(p), dtype=torch.bool, device=device), P * n_bams,
-        1).cpu().numpy().reshape(P, n_bams).astype(np.int64)
-    STAGES["data"] += len(p)
+    n, window = len(p), P * n_bams
+    host, dev, back = _staged(device, 6 * n, window * N_WORDS)
+    h = host.numpy()
+    sites = h[:4 * n].view(np.int32)
+    if n_bams == 1:
+        np.copyto(sites, p, casting="unsafe")
+    else:
+        np.multiply(p, n_bams, out=sites, casting="unsafe")
+        np.add(sites, sid, out=sites, casting="unsafe")
+    np.take(_CODE_OF_STAT, stat, out=h[4 * n:5 * n])  # a stat past 255 raises
+    h[5 * n:6 * n] = passm
+    if dev is not host:
+        dev[:6 * n].copy_(host[:6 * n], non_blocking=True)
+    counts, n_wide = pileup_window_counts(
+        dev[:4 * n].view(torch.int32), dev[4 * n:5 * n],
+        dev[5 * n:6 * n].view(torch.bool), window)
+    if counts.device.type != "cpu":
+        counts = back[:window * N_WORDS].view(window, N_WORDS).copy_(counts)
+    c = counts.numpy().reshape(P, n_bams, N_WORDS)
+    cm = c[..., CM].astype(np.int64)
+    cb = c[..., CB].astype(np.int64)
+    dp_arr = c[..., DP].astype(np.int64)
+    STAGES["data"] += n
+    STAGES["wide_chunks"] += n_wide or 0
     _COUNT_SPAN = (entered, time.perf_counter())
     return cm, cb, dp_arr
 

@@ -2,8 +2,9 @@
 """Bring-up check of the torch port (biscuit_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` of this tree
-        and of another checkout side by side on the data of phases 4 and 4b)
+    python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` and `pileup`
+        of this tree and of another checkout side by side on the data of
+        phases 4, 4b and 6)
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
@@ -27,10 +28,20 @@ Phases, one line each (more for the kernel table):
      its strips in shared memory and, at 16,000 columns, in device memory;
      their rows give the launch alone beside the wrapper, K1's also at a late round's 256
      lanes, K2's the DP, the traceback, and the two in one launch (the
-     engine's call), each held to the others. The seeder (K3) also runs
+     engine's call), each held to the others; the wide instance's bound
+     at every wide shape and, at 2048 lanes of 640 x 660, its launch alone
+     and its plain version. The seeder (K3) also runs
      seeded edge lanes (N everywhere, reads of no and one base, tandem
      repeats) under -e and under S of 3 and 1, which flag lanes, held to its
-     plain version and to the host's collect_intv
+     plain version and to the host's collect_intv. The chain scan (K6) also
+     runs the edge lanes of tests/test_torch_chain.py (1024 occurrences,
+     exactly NC chains and one more, a seed across l_pac, int64 ranks
+     around an l_pac >= 2^31) at NC 64 and 2, and its launch alone with 16
+     and with 32 threads a lane. K9's fused entry (cm, cb and the depth of
+     a window in one launch, the pileup path's call) runs a window of phase
+     6's size in coordinate order, two samples, shuffled (every chunk on its
+     device-memory path), on one site, empty and with codes in [21, 32);
+     its general entry (mesh.py's contract) keeps its own cases
   4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
      reads (tools/make_testdata.py, plus SNPs and small indels so that
      global alignment has work), the index built in-process, then the
@@ -47,18 +58,21 @@ Phases, one line each (more for the kernel table):
      against its plain version. Then the same PE align once more under
      torch.profiler: the card's busy time and idle share, device time by name
   4c. queries wider than the widest compiled strip: 128 reads of 640 bp,
-     and 64 pairs of a 640 bp mate 1 and a 150 bp mate 2, through the CLI
-     on the card: K1, K2 and (PE) K7 run their wide instance, no lane is
-     redone on the host for its width, and the SAM must equal the port's
-     host engine's byte for byte
+     and 64 pairs of a 640 bp mate 1 (every third damaged as in 4b) and a
+     150 bp mate 2, through the CLI on the card: K1, K2 and (PE) K7 run
+     their wide instance, no lane is redone on the host for its width, and
+     the SAM, SA:Z tags included, must equal the port's host engine's byte
+     for byte. In 4, 4b and 4c no global alignment may be left for worker2
+     (cigar_late_lanes 0)
   6. the pileup slice end to end: a 200 kbp genome at 30x (40,000 directional
      WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
      card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
      the card with the default 100,000 bp window step, so that full-size
      windows of about 3 x 10^6 data reach K9; the VCF must equal, without
      its ##program line, the VCF of the same CLI in a process of its own on
-     the CPU (plain counts), K9 must have launched twice a window that held
-     data, and the VCF must hold methylation lines and ALT alleles. Then
+     the CPU (plain counts), K9's fused entry must have launched once a
+     window that held data (its general entry never), and the VCF must hold
+     methylation lines and ALT alleles. Then
      the same pileup once more and once under torch.profiler: stage seconds
      of each run, the card's busy time and idle share, device time by name
   5. (last) neither jax nor any module of the JAX package was imported
@@ -174,6 +188,38 @@ def count_case(rng, window, n_bams, n, p_invalid):
     return site * n_bams + sample, codes, valid
 
 
+def chain_scan_inputs(opt, idx, fq, dev):
+    """K6's arguments as mem_chain_batch gives them for the first N_READS
+    reads of fq, both strands, and for chimeras of thirds of three reads
+    (lanes of three chains), caught at the scan's entry: (qbeg, len, rbeg,
+    valid, rid, k, n_occ, l_pac, w, max_gap, max_occ)."""
+    import numpy as np
+    from biscuit_tpu_torch.io.fastq import BSeq, fastq_iter, read_batch
+    from biscuit_tpu_torch.align.chain import mem_chain_batch
+    from biscuit_tpu_torch.align.device_engine import DeviceAligner
+    from biscuit_tpu_torch.align.pipeline import AlignerState
+    from biscuit_tpu_torch.ops import chain_batch
+    seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:N_READS]
+    n3 = READ_LEN // 3
+    chim = [np.concatenate([seqs[i].seq[:n3], seqs[i + 1].seq[n3:2 * n3],
+                            seqs[i + 2].seq[2 * n3:3 * n3]])
+            for i in range(0, 3 * (N_READS // 8), 3)]
+    seqs += [BSeq(name=f"chimera{i}", seq=c, l_seq=len(c))
+             for i, c in enumerate(chim)]
+    plan = [(s, p) for s in seqs for p in (0, 1)]
+    engine = DeviceAligner(AlignerState(idx), dev)
+    seeds, lookups = engine._collect_seeds(opt, plan)
+    jobs = [(s.l_seq, p, seeds[i], lookups[i]) for i, (s, p) in enumerate(plan)]
+    caught = []
+    real_scan = chain_batch.chain_scan_batch
+    chain_batch.chain_scan_batch = lambda *a, **k: caught.append(a) or real_scan(*a, **k)
+    try:
+        mem_chain_batch(opt, idx, jobs, dev)
+    finally:
+        chain_batch.chain_scan_batch = real_scan
+    return caught[0]
+
+
 def lanes_of(fq, n_reads):
     """The seeder's input for the first n_reads of fq, each read converted
     both ways as the engine plans SE lanes: (reads [2n, L] int32, lens,
@@ -182,16 +228,6 @@ def lanes_of(fq, n_reads):
     from biscuit_tpu_torch.align.device_engine import pack_lanes
     seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:n_reads]
     return pack_lanes([(s, p) for s in seqs for p in (0, 1)])
-
-
-def trim_fastq(path, n_bases):
-    """Rewrite FASTQ `path` with every read cut to its first n_bases."""
-    with open(path) as f:
-        lines = f.read().splitlines()
-    for i in range(1, len(lines), 2):  # the sequence and the quality lines
-        lines[i] = lines[i][:n_bases]
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
 
 
 def compare(name, got, want):
@@ -328,32 +364,85 @@ def main() -> int:
 
 
 def align_ab(work: str, other: str) -> int:
-    """`align` of this tree against the tree `other` (another checkout that
-    holds a `biscuit_tpu_torch/`) on the data of phases 4 and 4b, in four
-    processes one after the other: other, this, this, other. Each aligns PE
-    (cold: it builds the kernels), SE, PE, SE, PE through the CLI's `main`;
-    the seconds are those of the CLI's own `[M::mem_process_seqs] Processed
-    ... real sec` line. It checks nothing."""
+    """`align` and `pileup` of this tree against the tree `other` (another
+    checkout that holds a `biscuit_tpu_torch/`) on the data of phases 4, 4b
+    and 6, in four processes one after the other: other, this, this,
+    other. Each aligns PE (cold: it builds the kernels), SE, PE, SE, PE
+    through the CLI's `main`, then piles up phase 6's BAM (aligned and
+    sorted by this tree beforehand) twice, then times K6 on phase 3's
+    chain scan inputs (made by this tree): the wrapper, and the launch
+    alone through the C interface both trees share. The seconds are those
+    of the CLI's own `[M::mem_process_seqs] Processed ... real sec` line
+    and of each pileup call. It checks only that the two K6 calls agree."""
     import re
     from torch_testdata import damage_mates, make_dataset
     other = os.path.abspath(other)
     if not os.path.isdir(os.path.join(other, "biscuit_tpu_torch")):
         print(f"chip_smoke: no biscuit_tpu_torch in {other}", file=sys.stderr)
         return 2
-    fa, fq, _idx = make_dataset(work, genome_size=GENOME, n_reads=N_READS,
-                                read_len=READ_LEN, seed=SEED, snp_rate=0.001,
-                                indel_every=16)
+    fa, fq, idx = make_dataset(work, genome_size=GENOME, n_reads=N_READS,
+                               read_len=READ_LEN, seed=SEED, snp_rate=0.001,
+                               indel_every=16)
+    import torch
+    from biscuit_tpu_torch.config import MemOpt
+    k6 = os.path.join(work, "k6.pt")
+    torch.save([x.cpu() if torch.is_tensor(x) else x for x in chain_scan_inputs(
+        MemOpt(), idx, fq, torch.device("cuda", 0))], k6)
     _fa, (fq1, fq2), _ = make_dataset(
         os.path.join(work, "pe"), genome_size=GENOME, n_reads=N_PAIRS,
         read_len=READ_LEN, seed=SEED, snp_rate=0.001, pe=True, index=False)
     damage_mates(fq2, DAMAGE_EVERY)
+    pdir = os.path.join(work, "plp")
+    gfa, gfq, _ = make_dataset(pdir, genome_size=PLP_GENOME, n_reads=PLP_READS,
+                               read_len=READ_LEN, seed=SEED + 1, snp_rate=0.005)
+    gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
+    from biscuit_tpu_torch import cli
+    os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
+    with open(gsam, "w") as f, contextlib.redirect_stdout(f):
+        if cli.main(["align", gfa, gfq]) != 0:
+            return 1
+    if cli.main(["sort", "-o", gbam, gsam]) != 0:
+        return 1
+    vcf = os.path.join(pdir, "ab.vcf")
     card = card_line()
     pe, se = [fa, fq1, fq2], [fa, fq]
-    code = ("import contextlib, io\n"
+    sa_shape = torch.load(k6)[0].shape
+    code = ("import contextlib, io, sys, time\n"
             "from biscuit_tpu_torch import cli\n"
             f"for argv in {[pe, se, pe, se, pe]!r}:\n"
             "    with contextlib.redirect_stdout(io.StringIO()):\n"
-            "        cli.main(['align', *argv])\n")
+            "        cli.main(['align', *argv])\n"
+            "for _ in range(2):\n"
+            "    t = time.perf_counter()\n"
+            f"    assert cli.main(['pileup', '-o', {vcf!r}, {gfa!r}, {gbam!r}]) == 0\n"
+            "    print(f'[ab pileup] {time.perf_counter() - t:.3f}', file=sys.stderr)\n"
+            "import torch\n"
+            "from biscuit_tpu_torch import kernels\n"
+            "from biscuit_tpu_torch.ops import chain_batch as cb\n"
+            f"sa = [x.cuda() if torch.is_tensor(x) else x for x in torch.load({k6!r})]\n"
+            "p = [x.int().contiguous() for x in sa[:7]]\n"
+            "p[2] = sa[2].contiguous()\n"
+            "J, B = p[2].shape\n"
+            "log = torch.empty((J, B), dtype=torch.int32, device=p[2].device)\n"
+            "ov = torch.empty(B, dtype=torch.bool, device=p[2].device)\n"
+            "fn = 'chain_scan_wide' if p[2].dtype == torch.int64 else 'chain_scan_narrow'\n"
+            "go = lambda: kernels.launch(cb._lib(), fn, 'chain_scan', p[2].device, "
+            "*map(kernels.ptr, p), J, B, *map(int, sa[7:11]), 64, kernels.ptr(log), "
+            "kernels.ptr(ov))\n"
+            "wrap = lambda: cb.chain_scan_batch(*sa)\n"
+            "go()\n"
+            "assert torch.equal(wrap()[0], log)\n"
+            "def ms(fn, reps=50):\n"
+            "    fn()\n"
+            "    torch.cuda.synchronize()\n"
+            "    a, b = (torch.cuda.Event(enable_timing=True) for _ in '..')\n"
+            "    a.record()\n"
+            "    for _ in range(reps):\n"
+            "        fn()\n"
+            "    b.record()\n"
+            "    torch.cuda.synchronize()\n"
+            "    return a.elapsed_time(b) / reps\n"
+            "print(f'[ab k6] {ms(wrap):.4f} {ms(go):.4f}', file=sys.stderr)\n")
     for tag, tree in (("other", other), ("this", REPO), ("this", REPO),
                       ("other", other)):
         r = subprocess.run(
@@ -365,8 +454,16 @@ def align_ab(work: str, other: str) -> int:
             return 1
         real = re.findall(r"Processed \d+ reads in [\d.]+ CPU sec, "
                           r"([\d.]+) real sec", r.stderr)
+        plp = re.findall(r"\[ab pileup\] ([\d.]+)", r.stderr)
+        k6_ms = re.findall(r"\[ab k6\] ([\d.]+) ([\d.]+)", r.stderr)[0]
+        with open(vcf) as f:
+            n_sites = sum(1 for ln in f if ln[0] != "#")
         say(f"[ab] {tag}: real s of PE (cold), SE, PE, SE, PE: "
-            + " ".join(real) + f" [{card}]")
+            + " ".join(real) + "; pileup s: " + " ".join(plp)
+            + f" ({n_sites} sites: "
+            + " ".join(f"{n_sites / float(x):.1f}" for x in plp)
+            + f" sites/s); K6 on phase 3's inputs ([J, B] = {list(sa_shape)}): the "
+            f"wrapper {k6_ms[0]} ms, the launch alone {k6_ms[1]} ms [{card}]")
     return 0
 
 
@@ -852,41 +949,54 @@ def smoke(work: str) -> int:
     # K6: the occurrence streams mem_chain_batch builds for those lanes and
     # for chimeras of thirds of three reads (lanes of three chains), caught
     # at the scan's entry; then NC=2, where lanes overflow
-    from biscuit_tpu_torch.io.fastq import BSeq, fastq_iter, read_batch
-    from biscuit_tpu_torch.align.chain import CHAIN_NC, mem_chain_batch
-    from biscuit_tpu_torch.align.device_engine import DeviceAligner
-    from biscuit_tpu_torch.align.pipeline import AlignerState
-    seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:N_READS]
-    n3 = READ_LEN // 3
-    chim = [np.concatenate([seqs[i].seq[:n3], seqs[i + 1].seq[n3:2 * n3],
-                            seqs[i + 2].seq[2 * n3:3 * n3]])
-            for i in range(0, 3 * (N_READS // 8), 3)]
-    seqs += [BSeq(name=f"chimera{i}", seq=c, l_seq=len(c))
-             for i, c in enumerate(chim)]
-    plan = [(s, p) for s in seqs for p in (0, 1)]
-    engine = DeviceAligner(AlignerState(idx), dev)
-    seeds, lookups = engine._collect_seeds(opt, plan)
-    jobs = [(s.l_seq, p, seeds[i], lookups[i]) for i, (s, p) in enumerate(plan)]
-    caught = []
-    real_scan = chain_batch.chain_scan_batch
-    chain_batch.chain_scan_batch = lambda *a, **k: caught.append(a) or real_scan(*a, **k)
-    try:
-        mem_chain_batch(opt, idx, jobs, dev)
-    finally:
-        chain_batch.chain_scan_batch = real_scan
-    sa = caught[0]
+    from biscuit_tpu_torch.align.chain import CHAIN_JMAX, CHAIN_NC
+    sa = chain_scan_inputs(opt, idx, fq, dev)
     kc = lambda nc=CHAIN_NC: chain_batch.chain_scan_batch(*sa, NC=nc)
     pc = lambda nc=CHAIN_NC: chain_batch.chain_scan_batch_plain(*sa, NC=nc)
-    err = compare("chain_scan", kc(), pc())
+    err = compare("chain_scan", launched("chain_scan", kc), pc())
     got2 = kc(2)
     err = max(err, compare("chain_scan NC=2", got2, pc(2)))
     n_ov2 = int(got2[1].sum())
     if n_ov2 == 0:
         raise AssertionError("chain_scan NC=2 flagged no lane")
+    # the edge lanes of tests/test_torch_chain.py (CHAIN_JMAX occurrences,
+    # exactly NC chains and one more, a seed across l_pac) at NC 64 and 2,
+    # on int32 ranks around this index's l_pac and on int64 ranks around an
+    # l_pac >= 2^31; J = 1024 streams through the kernel's staging chunks
+    from torch_testdata import chain_edge_lanes, chain_planes
+    n_edge = 0
+    for nc in (CHAIN_NC, 2):
+        for l_pac, rdt in ((int(idx.l_pac), np.int32),
+                           ((1 << 31) + 12345, np.int64)):
+            planes, n_occ = chain_planes(chain_edge_lanes(nc, l_pac), rdt)
+            ea = (*(T(x) for x in planes), T(n_occ), l_pac, *sa[8:11])
+            if ea[0].shape[0] <= chain_batch.JC:
+                raise AssertionError("the edge lanes fit one staging chunk")
+            err = max(err, compare(
+                f"chain_scan edge lanes NC={nc} l_pac={l_pac}",
+                launched("chain_scan",
+                         lambda: chain_batch.chain_scan_batch(*ea, NC=nc)),
+                chain_batch.chain_scan_batch_plain(*ea, NC=nc)))
+            n_edge += 1
+
+    # the launch alone, without the wrapper's casts and its range check of
+    # n_occ with its sync; its result held to the plain version's too
+    log = torch.empty_like(sa[0], dtype=torch.int32)
+    ov = torch.empty(sa[0].shape[1], dtype=torch.bool, device=dev)
+    args = [x.int().contiguous() for x in sa[:7]]
+    args[2] = sa[2].contiguous()
+    k6_go = lambda: chain_batch._launch(*args, *sa[7:11], CHAIN_NC, log, ov)
+    k6_go()
+    compare("chain_scan, the launch alone", (log, ov), pc())
+    k6_alone = cuda_ms(k6_go, 50)
+    ms = cuda_ms(kc, 20)
     row("chain_scan", "chain_scan.cu", "biscuit_tpu/ops/chain_batch.py:44",
-        err, cuda_ms(kc, 20), cuda_ms(pc, 1),
-        f"J={sa[0].shape[0]} B={sa[0].shape[1]} NC={CHAIN_NC} "
-        f"(+NC=2: {n_ov2} lanes flagged, equal)",
+        err, ms, cuda_ms(pc, 1),
+        f"J={sa[0].shape[0]} B={sa[0].shape[1]} NC={CHAIN_NC} (+NC=2: "
+        f"{n_ov2} lanes flagged, equal; + {n_edge} cases of edge lanes, J="
+        f"{CHAIN_JMAX} over staging chunks of {chain_batch.JC}, int32 and "
+        f"int64 ranks: equal); the wrapper {ms:.4f} ms, the launch alone "
+        f"{k6_alone:.4f} ms",
         nbytes(*sa[:7], *kc()), 30 * int(sa[6].sum()))
 
     # K9: the window count scatter-add at the shapes phase 6 gives it, a
@@ -951,10 +1061,66 @@ def smoke(work: str) -> int:
     e = (T(np.zeros(0, np.int64)), T(np.zeros(0, np.int64)), T(np.zeros(0, bool)))
     if int(pileup_count.pileup_count_window(*e, PLP_WINDOW, 32).sum()) != 0:
         raise AssertionError("pileup_count of no data is not zero")
-    (ms, _raw, pms, lms), tag, moved, ops = k9
+    (ms, raw_ms, pms, lms), tag, moved, ops = k9
     row("pileup_count", "pileup_count.cu", "biscuit_tpu/parallel/mesh.py:118",
-        err, ms, pms, tag + " (+ 2 samples, 1 code, int32, refusals: equal)",
-        moved, ops, library_ms=lms, paths=("6",))
+        err, ms, pms, tag + f" (+ 2 samples, 1 code, int32, refusals: equal); "
+        f"the general entry, which the pileup path no longer calls: the "
+        f"wrapper {ms:.4f} ms, the launch alone {raw_ms:.4f} ms",
+        moved, ops, library_ms=lms, paths=())
+
+    # K9's fused entry, the pileup path's call: cm, cb and the depth of a
+    # window in one launch, on the inputs the engine stages (int32 site,
+    # uint8 code, bool pass: 6 bytes a datum), at phase 6's size: reads in
+    # coordinate order (the path's case, timed), two samples one after the
+    # other, the same data shuffled (every chunk on the device-memory path),
+    # every datum on one site, no data, passing codes in [21, 32). Integer
+    # counts: equal exactly.
+    from torch_testdata import (WINDOW_KINDS, window_count_case,
+                                window_count_inputs)
+    err, wide_by_kind = 0, {}
+    for kind in WINDOW_KINDS:
+        # two samples at phase 6's depth each
+        case = window_count_case(kind, seed=SEED, P=PLP_WINDOW, n=PLP_DATA * (
+            2 if kind == "two_samples" else 1))
+        (sites, codes, ok), window = window_count_inputs(*case)
+        a = (T(sites), T(codes), T(ok))
+        kf = lambda: pileup_count.pileup_window_counts(*a, window)
+        pf = lambda: pileup_count.pileup_window_counts_plain(*a, window)
+        got, n_wide = launched("pileup_window_counts", kf,
+                               1 if sites.size else 0)
+        err = max(err, compare(f"pileup_window_counts {kind}", got, pf()))
+        if int(got[:, pileup_count.DP].sum()) != sites.size:
+            raise AssertionError(f"pileup_window_counts {kind} lost data")
+        n_chunks = -(-sites.size // pileup_count.FUSED_CHUNK)
+        wide_by_kind[kind] = f"{n_wide} of {n_chunks}"
+        if kind == "shuffled" and n_wide != n_chunks:
+            raise AssertionError(f"shuffled: {n_wide} of {n_chunks} chunks "
+                                 "on the device-memory path")
+        if kind == "sorted":
+            k9f = (cuda_ms(kf, 20), cuda_ms(lambda: pileup_count._launch_fused(
+                *a, window), 20), cuda_ms(pf, 5))
+            k9f_moved = nbytes(*a) + window * pileup_count.N_WORDS * 4
+            k9f_tag = f"W={window} N={sites.size}"
+    for bad in ("site", "code"):
+        sites, codes, ok = (x[:4].clone() for x in a)
+        if bad == "site":
+            sites[2], ok[2] = window, False   # counts in the depth all the same
+        else:
+            codes[2], ok[2] = 32, True
+        try:
+            pileup_count.pileup_window_counts(sites, codes, ok, window)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"pileup_window_counts took a bad {bad}")
+    say(f"[3] pileup_window_counts: chunks on the device-memory path by kind: "
+        f"{json.dumps(wide_by_kind)}")
+    row("pileup_window_counts", "pileup_count.cu",
+        "biscuit_tpu/pileup/engine.py:526 (two calls of parallel/mesh.py:118)",
+        err, k9f[0], k9f[2],
+        f"{k9f_tag}, reads in coordinate order: the wrapper {k9f[0]:.4f} ms, "
+        f"the launch alone {k9f[1]:.4f} ms; + kinds {list(WINDOW_KINDS)}, "
+        "refusals: equal", k9f_moved, 3 * PLP_DATA, paths=("6",))
 
     # the seeder and the SA walk on a 50 Mbp index, whose tables (about
     # 100 MB each strand pair) are twice the L2; the plain versions on
@@ -1009,7 +1175,7 @@ def smoke(work: str) -> int:
     from biscuit_tpu_torch.config import MemOpt, MEM_F_NO_MULTI, MEM_F_PE
     from biscuit_tpu_torch.index.fmindex import BisIndex
     from biscuit_tpu_torch.align.pipeline import AlignerState, process_seqs
-    from torch_testdata import damage_mates, load_pairs
+    from torch_testdata import damage_mates, load_pairs, trim_fastq
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
 
     def align(argv):
@@ -1060,7 +1226,12 @@ def smoke(work: str) -> int:
     def check_lanes(rep, n_lanes, tag):
         say(f"[{tag}] lanes redone on host: seeding {rep['seed_overflow_lanes']}, "
             f"chaining {rep['chain_host_lanes']} of {n_lanes}; traceback "
-            f"overflow {rep['traceback_overflow_lanes']}")
+            f"overflow {rep['traceback_overflow_lanes']}; global alignments "
+            f"left for worker2 (cigar_late_lanes) {rep['cigar_late_lanes']}")
+        # the prefill's candidates over-approximate what reg2sam formats
+        if rep["cigar_late_lanes"]:
+            raise AssertionError("worker2 asked for a global alignment the "
+                                 "CIGAR prefill did not compute")
         # a kernel that flagged every lane must not pass behind the host rerun
         if rep["seed_overflow_lanes"] > n_lanes // 100:
             raise AssertionError("over 1% of the seeding lanes ran on the host")
@@ -1238,26 +1409,76 @@ def smoke(work: str) -> int:
         f"codes, e_ins 0/1/3: equal",
         nbytes(*(x for x in fwd if torch.is_tensor(x)), *kf().values()),
         int(cells.sum()) * CELL_OPS["sw_local"], paths=("4b",))
-    # what the wide instance costs: the three wrappers on 2048 edge lanes at
-    # the widest compiled strip and at phase 4c's width
     def wide_times():
-        for B, Lq, Lt in ((2048, 512, 530), (2048, WIDE_LEN, WIDE_LEN + 20)):
-            sc = (6, 1, 6, 1)
+        """What the wide instance costs: the three wrappers on 2048 edge
+        lanes at the widest compiled strip and at phase 4c's width, there
+        also the launches alone and the plain versions; and each kernel's
+        bound (band cells x CELL_OPS, inputs read and outputs written once;
+        K2's z counted a byte a band cell, K7 fills its whole rectangle)
+        there and at every WIDE_SHAPES shape."""
+        sc = (6, 1, 6, 1)
+        for B, Lq, Lt in ((2048, 512, 530), (2048, WIDE_LEN, WIDE_LEN + 20),
+                          *WIDE_SHAPES):
+            timed = B == 2048
             q, ql, t, tl, mats, msel, w, bonus, h0 = (
                 T(x) for x in extend_edge_case(3, B, Lq, Lt))
-            k1 = cuda_ms(lambda: sw_extend.sw_extend_batch(
-                q, ql, t, tl, mats, msel, *sc, w, bonus, 100, h0), 10)
+            k = lambda: sw_extend.sw_extend_batch(
+                q, ql, t, tl, mats, msel, *sc, w, bonus, 100, h0)
+            mat_b = mats[msel.long()].reshape(-1, 25).contiguous()
+            wc = sw_extend.band_clamp(ql, w, bonus, mats, *sc)
+            k1 = (bound(nbytes(q, ql, t, tl, mats, msel, w, bonus, h0, k()),
+                        band_cells(ql, tl, wc) * CELL_OPS["sw_extend"]),)
+            if timed:
+                k1 += (cuda_ms(k, 10), cuda_ms(lambda: sw_extend._launch(
+                    q, ql, t, tl, mat_b, wc, h0, *sc, 100), 10))
+            if Lq == WIDE_LEN:
+                k1 += (cuda_ms(lambda: sw_extend.sw_extend_batch_plain(
+                    q, ql, t, tl, mat_b, wc, h0, *sc, 100), 1),)
             q, ql, t, tl, mats, msel, w = (T(x) for x in global_edge_case(3, B, Lq, Lt))
             tl = tl.clamp(max=Lt)
-            k2 = cuda_ms(lambda: sw_global.sw_global_cigar(
-                q, ql, t, tl, mats, msel, *sc, w), 10)
-            first, last = local_edge_case(3, B, Lq, Lt)
+            mat_b = mats[msel.long()].reshape(-1, 25).contiguous()
+            k = lambda: sw_global.sw_global_cigar(q, ql, t, tl, mats, msel, *sc, w)
+            # z, a direction byte a cell, written and read back in the launch:
+            # only the band's cells, those the operations count
+            cells = band_cells(ql, tl.clamp(min=1), w.clamp(min=1))
+            k2 = (bound(nbytes(q, ql, t, tl, mats, msel, w, *k()) + cells,
+                        cells * CELL_OPS["sw_global"]),)
+            if timed:
+                k2 += (cuda_ms(k, 10), cuda_ms(lambda: sw_global._launch(
+                    q, ql, t, tl, mat_b, w, *sc, sw_global.MAX_OPS), 10))
+            if Lq == WIDE_LEN:
+                k2 += (cuda_ms(lambda: sw_global.sw_global_cigar_plain(
+                    q, ql, t, tl, mat_b, w, *sc), 1),)
+            Lq16 = -(-Lq // 16) * 16
+            first, last = local_edge_case(3, B, Lq16, Lt)
             a = (*(T(x) for x in first), *sc, *(T(x) for x in last))
-            k7 = cuda_ms(lambda: sw_local.sw_local_batch(*a), 10)
+            q, ql, t, tl, mats, msel = a[:6]
+            mn, en, u8 = a[10:]
+            mat_b = mats.to(torch.int32)[msel.long()].reshape(-1, 25).contiguous()
+            k = lambda: sw_local.sw_local_batch(*a)
+            k7 = (bound(nbytes(*(x for x in a if torch.is_tensor(x)),
+                               *k().values()),
+                        int((ql.long() * tl.long()).sum()) * CELL_OPS["sw_local"]),)
+            if timed:
+                qk, tk = strip_scan.kernel_codes(q, t)
+                k7 += (cuda_ms(k, 10), cuda_ms(lambda: sw_local._launch(
+                    qk, ql.int(), tk, tl.int(), mat_b, en.int(), u8.int(),
+                    *sc), 10))
+            if Lq == WIDE_LEN:
+                k7 += (cuda_ms(lambda: sw_local.sw_local_batch_plain(
+                    q.int(), ql, t.int(), tl, mat_b, mn, en, u8, *sc), 1),)
+            parts = []
+            for name, v in (("sw_extend", k1), ("sw_global_cigar", k2),
+                            ("sw_local", k7)):
+                txt = f"{name}: bound {v[0][0]:.6f} ms by {v[0][1]}"
+                if timed:
+                    txt += f", the wrapper {v[1]:.4f} ms, the launch alone {v[2]:.4f} ms"
+                if len(v) > 3:
+                    txt += f", plain {v[3]:.4f} ms"
+                parts.append(txt)
             say(f"[3] edge lanes B={B} Lq={Lq} Lt={Lt}, instance C="
-                f"{strip_scan.strip_width(Lq)} (0: wide), the wrappers: sw_extend "
-                f"{k1:.4f} ms, sw_global_cigar {k2:.4f} ms, sw_local {k7:.4f} ms "
-                f"[{card}]")
+                f"{strip_scan.strip_width(Lq)} (0: wide): " + "; ".join(parts)
+                + f" [{card}]")
     wide_times()
     for r in table:
         n_se, n_pe = launches.get(r["name"], 0), plaunch.get(r["name"], 0)
@@ -1269,12 +1490,13 @@ def smoke(work: str) -> int:
     # 4c. reads of WIDE_LEN bases, wider than the widest compiled strip of
     # K1, K7 and K2, through the CLI on the card. Their extension, rescue
     # and global-alignment lanes run the kernels' wide instance; the SAM
-    # must be the host engine's. SE, then pairs of a long mate 1 (which rescue aligns
-    # as a long query from its mate's place) and a 150 bp mate 2. No mate is
-    # damaged here: a long read without its own hit collects chance 19-mers
-    # of the three-letter genome as weak regions, and for such a read the
-    # device engines (the JAX package's too) list regions in SA:Z that the
-    # host engine does not format (ROADMAP.md, Queue 3).
+    # must be the host engine's. SE, then pairs of a long mate 1 (which
+    # rescue aligns as a long query from its mate's place) and a 150 bp mate
+    # 2, every DAMAGE_EVERY-th long mate damaged as in phase 4b: such a read
+    # has no seed of its own, collects chance 19-mers of the three-letter
+    # genome as weak regions, and its best region may score below T; the
+    # CIGAR prefill computes those regions too, and the SAM must still list
+    # in SA:Z only what the host engine formats.
     t0 = time.perf_counter()
     wfa, wfq, _ = make_dataset(
         os.path.join(work, "wide"), genome_size=GENOME, n_reads=N_WIDE,
@@ -1290,10 +1512,11 @@ def smoke(work: str) -> int:
                 raise AssertionError("the long reads' genome differs from "
                                      "phase 4's")
     trim_fastq(wfq2, READ_LEN)
+    damage_mates(wfq1, DAMAGE_EVERY)
     say(f"[4c] data: {N_WIDE} reads and {N_WIDE_PAIRS} mates 1 of {WIDE_LEN} "
         f"bp (the widest compiled strip: {32 * max(strip_scan.STRIP_WIDTHS)} "
-        f"columns), mates 2 of {READ_LEN} bp, in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"columns), every {DAMAGE_EVERY}rd mate 1 damaged, mates 2 of "
+        f"{READ_LEN} bp, in {time.perf_counter() - t0:.1f} s")
     for tag, argv, seqs, flag, need in (
             ("SE", [fa, wfq], read_batch(fastq_iter(wfq), None, 1 << 60), 0,
              ("sw_extend", "sw_global")),
@@ -1319,8 +1542,13 @@ def smoke(work: str) -> int:
             raise AssertionError(f"{tag} long reads: {wmapped} of {len(seqs)} "
                                  f"mapped, launches {counts}, {n_wide} of the "
                                  f"wide instance")
+        if wrep["cigar_late_lanes"]:
+            raise AssertionError(f"{tag} long reads: worker2 asked for a "
+                                 "global alignment the CIGAR prefill did not "
+                                 "compute")
         redone = {k: wrep[k] for k in ("seed_overflow_lanes", "chain_host_lanes",
-                                       "traceback_overflow_lanes")}
+                                       "traceback_overflow_lanes",
+                                       "cigar_late_lanes")}
         say(f"[4c] {tag}: {len(seqs)} reads, {wmapped} mapped, SAM "
             f"byte-identical to the host engine ({host_s:.1f} s on host); "
             f"launches of the DP kernels: {json.dumps(counts)}, {n_wide} of "
@@ -1405,8 +1633,8 @@ def smoke(work: str) -> int:
     # two chromosomes of PLP_GENOME / 2, windows [1 + k * step, ...) below
     # the chromosome's length
     n_windows = 2 * -(-(PLP_GENOME // 2 - 1) // PLP_WINDOW)
-    if st["windows"] != n_windows or \
-            klaunch.get("pileup_count", 0) != 2 * st["windows"]:
+    if st["windows"] != n_windows or klaunch.get("pileup_count", 0) or \
+            klaunch.get("pileup_window_counts", 0) != st["windows"]:
         raise AssertionError(f"{st['windows']} windows with data (expected "
                              f"{n_windows}), launches {klaunch}")
     if st["data"] < 0.8 * PLP_READS * READ_LEN:
@@ -1418,7 +1646,9 @@ def smoke(work: str) -> int:
     say(f"[6] stages (s): open {st['open']:.3f}, read decode "
         f"{st['decode']:.3f}, K9 with its copies "
         f"{st['count']:.3f}, emit {st['emit']:.3f}; {st['windows']} windows, "
-        f"{st['data']} data = {st['data'] // st['windows']} a window")
+        f"{st['data']} data = {st['data'] // st['windows']} a window; chunks "
+        f"of data K9 counted in device memory for want of room in shared "
+        f"memory: {st['wide_chunks']}")
     say(f"[6] launches: {json.dumps(klaunch)}")
     say(f"[6] pileup wall {t_plp:.2f} s = {len(sites) / t_plp:.1f} sites/s, "
         f"{PLP_GENOME / t_plp:.1f} bp/s [{card}]")

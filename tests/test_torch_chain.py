@@ -22,7 +22,8 @@ from biscuit_tpu_torch.align.chain import (CHAIN_JMAX, CHAIN_KMAX, getbss,
 from biscuit_tpu_torch.align.device_engine import DeviceAligner
 from biscuit_tpu_torch.ops import chain_batch as tcb
 
-from torch_testdata import jax_index, load_reads, make_dataset
+from torch_testdata import (chain_edge_lanes, chain_planes, jax_index,
+                            load_reads, make_dataset)
 
 # the plain versions are loops of small ops: under pytest-xdist, intra-op
 # threads of several workers only contend for the cores
@@ -57,8 +58,8 @@ def lanes(tmp_path_factory):
     return st, plan, jobs
 
 
-def _stream(opt, idx, jobs, rdt):
-    """The occurrence planes mem_chain_batch builds, for every lane."""
+def _stream(opt, idx, jobs):
+    """The occurrence records mem_chain_batch builds, for every lane."""
     recs_all = []
     for l_seq, parent, mem, lk in jobs:
         recs = []
@@ -70,46 +71,77 @@ def _stream(opt, idx, jobs, rdt):
                     parent, idx, rb) != opt.bsstrand >> 1)
                 recs.append((sb, se - sb, rb, int(vd), max(rid, 0), k))
         recs_all.append(recs[:CHAIN_JMAX])
-    J, B = max(len(r) for r in recs_all), len(recs_all)
-    planes = [np.zeros((J, B), np.int32) for _ in range(6)]
-    planes[2] = planes[2].astype(rdt)
-    n_occ = np.zeros(B, np.int32)
-    for b, recs in enumerate(recs_all):
-        n_occ[b] = len(recs)
-        for j, rec in enumerate(recs):
-            for c in range(6):
-                planes[c][j, b] = rec[c]
-    return planes, n_occ
+    return recs_all
+
+
+def _scan_both(planes, n_occ, args, NC, shift=0):
+    """The plain scan on the planes, and the JAX scan on them in int32 with
+    every reference position and l_pac less `shift` (the scan compares
+    positions with each other and with l_pac only, so a shift changes
+    nothing): both (log, ov) as numpy, and the plain result as tensors."""
+    import jax.numpy as jnp
+    jp = [jnp.asarray((p - shift if c == 2 else p).astype(np.int32))
+          for c, p in enumerate(planes)]
+    jlog, jov = jax_scan(*jp, jnp.asarray(n_occ), np.int32(args[0] - shift),
+                         *args[1:], NC=NC)
+    T = [torch.from_numpy(p) for p in planes] + [torch.from_numpy(n_occ)]
+    log, ov = tcb.chain_scan_batch_plain(*T, *args, NC=NC)
+    np.testing.assert_array_equal(log.numpy(), np.asarray(jlog))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(jov))
+    # on CPU tensors the public op is the plain machine
+    log2, ov2 = tcb.chain_scan_batch(*T, *args, NC=NC)
+    assert torch.equal(log2, log) and torch.equal(ov2, ov)
+    return log, ov
+
+
+def _check_edge_lanes(log, ov, NC, first):
+    """The edge lanes (chain_edge_lanes) from column `first` on: under
+    NC = 64 the long lane acts to its last occurrences; the lane of exactly
+    NC chains makes them all, the next one flags, the pacrej lane founds a
+    second chain where it crosses l_pac and appends to it."""
+    kinds = log.numpy() & 3
+    if NC == 64:
+        assert not ov[first] and kinds[CHAIN_JMAX - 8:, first].any()
+        assert (kinds[:, first] == tcb.K_EXTRA).any()
+    assert (kinds[:, first + 1] == tcb.K_NEW).sum() == NC
+    assert not ov[first + 1] and ov[first + 2]
+    assert kinds[:3, first + 3].tolist() == [tcb.K_NEW, tcb.K_NEW,
+                                             tcb.K_APPEND]
 
 
 @pytest.mark.parametrize("NC", [64, 2])
 @pytest.mark.parametrize("rdt", [np.int32, np.int64])
 def test_chain_scan_plain_matches_jax(lanes, NC, rdt):
-    """int64 ranks are held to the JAX scan in int32 on the same values:
-    the JAX scan raises a TypeError under x64 (its log row turns int64)."""
-    import jax.numpy as jnp
+    """The streams of real lanes, beside lanes at the scan's edges
+    (chain_edge_lanes: CHAIN_JMAX occurrences, exactly NC chains and one
+    more, a seed that crosses l_pac). int64 ranks are held to the JAX scan
+    in int32 on the same values (the JAX scan raises a TypeError under x64:
+    its log row turns int64), and the edge lanes once more around an
+    l_pac >= 2^31, shifted down by 2^31 for the JAX scan."""
     st, _plan, jobs = lanes
     opt = MemOpt()
-    planes, n_occ = _stream(opt, st.idx, jobs, rdt)
     args = (int(st.idx.l_pac), int(opt.w), int(opt.max_chain_gap),
             int(opt.max_occ))
-    jp = [jnp.asarray(p.astype(np.int32)) for p in planes]
-    jlog, jov = jax_scan(*jp, jnp.asarray(n_occ), np.int32(args[0]),
-                         *args[1:], NC=NC)
-    jlog, jov = np.asarray(jlog), np.asarray(jov)
-    T = [torch.from_numpy(p) for p in planes] + [torch.from_numpy(n_occ)]
-    log, ov = tcb.chain_scan_batch_plain(*T, *args, NC=NC)
-    np.testing.assert_array_equal(log.numpy(), jlog)
-    np.testing.assert_array_equal(ov.numpy(), jov)
-    # on CPU tensors the public op is the plain machine
-    log2, ov2 = tcb.chain_scan_batch(*T, *args, NC=NC)
-    assert torch.equal(log2, log) and torch.equal(ov2, ov)
-    kinds = np.bincount((log.numpy() & 3).ravel(), minlength=4)
+    path = _stream(opt, st.idx, jobs)
+    edge = chain_edge_lanes(NC, args[0])
+    assert max(len(r) for r in path) < len(edge[0]) == CHAIN_JMAX
+    planes, n_occ = chain_planes(path + edge, rdt)
+    log, ov = _scan_both(planes, n_occ, args, NC)
+    B = len(path)
+    kinds = np.bincount((log.numpy()[:, :B] & 3).ravel(), minlength=4)
     assert kinds[tcb.K_NEW] > 0 and kinds[tcb.K_APPEND] > 0
     if NC == 2:
-        assert ov.any() and not ov.all()
+        assert ov[:B].any() and not ov[:B].all()
     else:
-        assert not ov.any() and kinds[tcb.K_EXTRA] > 0
+        assert not ov[:B].any() and kinds[tcb.K_EXTRA] > 0
+    _check_edge_lanes(log, ov, NC, B)
+    if rdt == np.int64:
+        big = (1 << 31) + 12345
+        planes, n_occ = chain_planes(chain_edge_lanes(NC, big, seed=1), rdt)
+        assert planes[2].min() < big <= planes[2].max()
+        log, ov = _scan_both(planes, n_occ, (big, *args[1:]), NC,
+                             shift=1 << 31)
+        _check_edge_lanes(log, ov, NC, 0)
 
 
 def _synthetic_jobs(idx):
@@ -152,3 +184,20 @@ def test_mem_chain_batch_matches_jax_and_host(lanes):
                     [vars(x) for x in cw.seeds_extra]
     assert n_dev >= 0.9 * len(plan)
     assert sum(len(c.seeds) > 1 for g in got[:len(plan)] if g for c in g) > 0
+
+
+def test_kernel_constants_match_the_sources():
+    """The constants the wrappers and chip_smoke.py read are the CUDA
+    sources' own: K6's chain slots and staging chunk, K9's fused chunk."""
+    import re
+    from biscuit_tpu_torch.ops import pileup_count
+    from torch_testdata import REPO
+
+    def const(name, src):
+        with open(f"{REPO}/biscuit_tpu_torch/kernels/{src}") as f:
+            m = re.search(rf"\b{name} = (\d+)", f.read())
+        return int(m.group(1))
+    assert const("NC_MAX", "chain_scan.cu") == tcb.NC_MAX == 64
+    assert const("JC", "chain_scan.cu") == tcb.JC
+    assert const("FUSED_CHUNK", "pileup_count.cu") == pileup_count.FUSED_CHUNK
+    assert const("FUSED_W", "pileup_count.cu") == pileup_count.N_WORDS

@@ -255,6 +255,92 @@ def test_pe_sam_matches_jax_device_and_host(pe_data, port_pe_sam, rescue):
         assert "rescue" not in report and report["rescue_lanes"] == 0
 
 
+@pytest.mark.parametrize("layout", ["se", "pe"])
+def test_no_global_alignment_is_left_for_worker2(port_sam, port_pe_sam,
+                                                 layout):
+    """The CIGAR prefill computes every global alignment that reg2sam asks
+    for: none runs late, at worker2 time."""
+    report = port_sam[1] if layout == "se" else port_pe_sam[True][1]
+    assert report["cigar"] > 0 and report["cigar_late_lanes"] == 0
+
+
+@pytest.mark.parametrize("layout", ["se", "pe"])
+def test_needs_global_is_what_alnreg_setSAM_asks_for(data, pe_data, layout):
+    """The prefill leaves a region out only when alnreg_setSAM asks no
+    global alignment of it. device_engine._needs_global re-derives the
+    first lines of mem_alnreg_setSAM (the band from infer_bw, the ungapped
+    case); on every mapped region of the SE and PE test chunks,
+    alnreg_setSAM on a copy calls its global_fn exactly when
+    _needs_global says so."""
+    import copy
+    from biscuit_tpu_torch.align import sam as tsam
+    from biscuit_tpu_torch.align.device_engine import (DeviceAligner,
+                                                       _needs_global)
+    se = layout == "se"
+    _fa, fq, idx = data if se else pe_data
+    seqs = load_reads(fq, N_READS) if se else load_pairs(*fq)
+    opt = _opt() if se else _pe_opt()
+    regs = DeviceAligner(tpipe.AlignerState(idx.port), "cpu").regs_for_batch(
+        opt, seqs)
+
+    class Asked(Exception):
+        pass
+
+    def ask(*_a):
+        raise Asked
+    seen = collections.Counter()
+    for s, rs in zip(seqs, regs):
+        for r in rs:
+            if r.rb < 0 or r.re < 0:
+                continue
+            try:
+                tsam.alnreg_setSAM(opt, idx.port, s, copy.copy(r),
+                                   global_fn=ask)
+                asked = False
+            except Asked:
+                asked = True
+            assert asked == _needs_global(opt, r), (s.name, r.rb, r.re)
+            seen[asked] += 1
+    assert seen[True] > 0 and seen[False] > 0, seen
+
+
+@pytest.mark.parametrize("layout", ["se", "pe"])
+def test_weak_regions_stay_out_of_sa_tags(tmp_path, monkeypatch, layout):
+    """A read whose best region scores below T: 640 bp reads (PE: mates 1
+    of 640 bp beside mates 2 of 150) on a 200 kbp genome, every third one
+    damaged at every 9th base, so that it has no seed of its own and only
+    chance hits of the three-letter genome (PE: and its rescue), under
+    T = 20. The JAX device engine, whose CIGAR prefill fills every region
+    its candidates over-approximate, lists weak regions in SA:Z that the
+    host engine never formats; the port's prefill writes into a cache, not
+    into the regions, so its SAM, SA:Z tags included, is the host
+    engine's, and reg2sam asks for no alignment the prefill left out."""
+    from torch_testdata import trim_fastq
+    pe = layout == "pe"
+    fa, fq, idx = make_dataset(tmp_path, genome_size=200_000, n_reads=24,
+                               seed=7, read_len=640, snp_rate=0.001, pe=pe)
+    if pe:
+        trim_fastq(fq[1], 150)
+    damage_mates(fq[0] if pe else fq, 3)
+
+    def sam(run, cfg, st, **kw):
+        seqs = (load_pairs(*fq, jax_pkg=cfg is jconfig) if pe
+                else load_reads(fq, 24, jax_pkg=cfg is jconfig))
+        opt = _pe_opt(cfg=cfg) if pe else _opt(cfg)
+        opt.T = 20
+        run(opt, st, seqs, 0, **kw)
+        return [s.sam for s in seqs]
+    reset_stages()
+    port = sam(process_seqs_device, tconfig, tpipe.AlignerState(idx),
+               device="cpu")
+    assert stage_report()["cigar_late_lanes"] == 0
+    assert port == sam(tpipe.process_seqs, tconfig, tpipe.AlignerState(idx))
+    jst = AlignerState(JaxBisIndex.load(fa))
+    jdev = sam(jax_device, jconfig, jst)
+    assert any("\tSA:Z:" in d and "\tSA:Z:" not in p
+               for d, p in zip(jdev, port))
+
+
 def test_matesw_batch_matches_sequential(pe_data):
     """The port's matesw_batch over its K7 (plain on the CPU) leaves the
     region lists identical to the sequential per-pair matesw loop, the
@@ -349,11 +435,38 @@ class _NoImports(ast.NodeTransformer):
     visit_ImportFrom = visit_Import
 
 
-def _code(path, drop=()):
+class _NoArgs(ast.NodeTransformer):
+    """Drops the parameters named in `names` from every function (with
+    their defaults) and the keyword arguments of those names from every
+    call."""
+
+    def __init__(self, names):
+        self.names = set(names)
+
+    def visit_FunctionDef(self, node):
+        a = node.args
+        keep = [x.arg not in self.names for x in a.posonlyargs + a.args]
+        n_plain = len(keep) - len(a.defaults)
+        a.defaults = [d for d, k in zip(a.defaults, keep[n_plain:]) if k]
+        a.args = [x for x in a.args if x.arg not in self.names]
+        kw = [(x, d) for x, d in zip(a.kwonlyargs, a.kw_defaults)
+              if x.arg not in self.names]
+        a.kwonlyargs, a.kw_defaults = [x for x, _ in kw], [d for _, d in kw]
+        self.generic_visit(node)
+        return node
+
+    def visit_Call(self, node):
+        node.keywords = [k for k in node.keywords if k.arg not in self.names]
+        self.generic_visit(node)
+        return node
+
+
+def _code(path, drop=(), args=()):
     """Module body as AST dumps, without the docstring, any import
-    statement and the top-level names in `drop`."""
+    statement, the top-level names in `drop` and the parameters and
+    keyword arguments named in `args`."""
     with open(path) as f:
-        tree = _NoImports().visit(ast.parse(f.read()))
+        tree = _NoArgs(args).visit(_NoImports().visit(ast.parse(f.read())))
     out = []
     for i, node in enumerate(tree.body):
         if i == 0 and isinstance(node, ast.Expr):
@@ -370,12 +483,19 @@ def _code(path, drop=()):
 
 
 # every module the port copied from the JAX package: id -> (path inside
-# either package, top-level names left out of the comparison). The names
-# left out are what the copy deliberately changes or does not carry.
-_ALIGN = {n: (f"align/{n}.py", ()) for n in ("trace", "smem", "region", "sam",
-                                             "pair", "pipeline")}
+# either package, top-level names left out of the comparison[, parameters
+# and keyword arguments left out of it]). What is left out is what the copy
+# deliberately changes or does not carry.
+_ALIGN = {n: (f"align/{n}.py", ()) for n in ("trace", "smem", "region",
+                                             "pair")}
 COPIES = {
     **_ALIGN,
+    # global_fn: the device engine's cached global alignments, handed by
+    # worker2_se / worker2_pe through reg2sam_se / reg2sam_pe /
+    # reg2sam_pe_nopairing, select_format, format_sam and _tag_XAXB to every
+    # alnreg_setSAM call; alnreg_setSAM calls it with its region
+    "sam": ("align/sam.py", (), ("global_fn",)),
+    "pipeline": ("align/pipeline.py", (), ("global_fn",)),
     # its call into the chain scan is the port's own
     "chain": ("align/chain.py", ("mem_chain_batch",)),
     "config": ("config.py", ()),
@@ -400,23 +520,26 @@ COPIES = {
     "align/io_helpers": ("align/io_helpers.py", ()),
     "pileup/stats": ("pileup/stats.py", ()),
     "pileup/common": ("pileup/common.py", ()),
-    # the counts come from the port's scatter-add on a torch device
+    # the counts come from the port's fused window count on a torch device
+    # over reused staging buffers
     # (test_pileup_window_fast_differs_only_in_its_counts): no mode switch,
     # no sharded counts, no C++ window engine; windows run in-process on a
     # CUDA device; stage timers
     "pileup/engine": ("pileup/engine.py", (
         "pileup_window", "_pileup_window_fast", "_device_counts",
         "_mesh_counts", "_MESH_FNS", "_pool_window1", "run_windows_pooled",
-        "_window1", "run_windows", "STAGES", "_COUNT_SPAN", "reset_stages")),
+        "_window1", "run_windows", "STAGES", "_COUNT_SPAN", "reset_stages",
+        "_STAGING", "_staged", "_CODE_OF_STAT")),
 }
 
 
 @pytest.mark.parametrize("name", list(COPIES))
 def test_copied_module_matches_source(name):
-    rel, drop = COPIES[name]
+    rel, drop, *args = COPIES[name]
+    args = args[0] if args else ()
     src = os.path.join(REPO, "biscuit_tpu", rel)
     dst = os.path.join(REPO, "biscuit_tpu_torch", rel)
-    assert _code(dst, drop) == _code(src, drop)
+    assert _code(dst, drop, args) == _code(src, drop, args)
 
 
 @pytest.mark.parametrize("name", ["sais.cpp", "bwt_merge.cpp"])

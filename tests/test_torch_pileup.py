@@ -24,11 +24,14 @@ from biscuit_tpu.parallel.mesh import pileup_count_window as jax_count
 from biscuit_tpu.pileup import engine as jengine
 from biscuit_tpu_torch.io.sambam import AlignmentFile
 from biscuit_tpu_torch.ops.pileup_count import (pileup_count_window,
-                                                pileup_count_window_plain)
+                                                pileup_count_window_plain,
+                                                pileup_window_counts,
+                                                pileup_window_counts_plain)
 from biscuit_tpu_torch.pileup import engine as tengine
 from biscuit_tpu_torch.pileup.common import NCONTXTS, RefCache
 
-from torch_testdata import REPO, make_dataset
+from torch_testdata import (REPO, WINDOW_KINDS, make_dataset,
+                            window_count_case, window_count_inputs)
 
 torch.set_num_threads(1)
 
@@ -199,6 +202,95 @@ def test_device_counts_match_jax_and_numpy(bam, monkeypatch):
                       minlength=P * n_bams * 7).reshape(P, n_bams, 7)
     assert np.array_equal(cm, ncm) and np.array_equal(cb, ncb)
     assert np.array_equal(dp, ndp) and dp.sum() == len(p)
+
+
+def _split(counts, P, n_bams):
+    """cm, cb, dp as int64 numpy from the fused [P * n_bams, 11] counts."""
+    c = counts.numpy().reshape(P, n_bams, 11).astype(np.int64)
+    return c[..., 0:3], c[..., 3:10], c[..., 10]
+
+
+def _fused_matches_jax(p, sid, stat, passm, P, n_bams):
+    """The fused plain op, the wrapper on CPU tensors and the port's
+    _device_counts (its staging included) against the JAX package's
+    _device_counts: every count equal."""
+    (sites, codes, ok), window = window_count_inputs(p, sid, stat, passm, P,
+                                                     n_bams)
+    args = tuple(torch.from_numpy(a) for a in (sites, codes, ok))
+    got = pileup_window_counts_plain(*args, window)
+    assert got.dtype == torch.int32 and got.shape == (window, 11)
+    counts, n_wide = pileup_window_counts(*args, window)
+    assert torch.equal(counts, got) and n_wide is None
+    want = jengine._device_counts(p, sid, stat, passm, P, n_bams)
+    engine = tengine._device_counts(p, sid, stat, passm, P, n_bams, CPU)
+    for g, e, w in zip(_split(got, P, n_bams), engine, want):
+        assert np.array_equal(g, w) and np.array_equal(e, w)
+        assert e.dtype == w.dtype == np.int64 and e.shape == w.shape
+    assert int(got[:, 10].sum()) == len(p)   # every datum in the depth
+    return got
+
+
+@pytest.mark.parametrize("n_bams", [1, 2], ids=["one_sample", "two_samples"])
+def test_window_counts_plain_matches_jax_device_counts(bam, monkeypatch,
+                                                       n_bams):
+    """The fused count (cm, cb and dp in one call) on the datum arrays of a
+    real window, caught where the port's window function hands them over."""
+    fa, _sam, path, twin = bam
+    caught = []
+    real = tengine._device_counts
+    monkeypatch.setattr(tengine, "_device_counts",
+                        lambda *a: caught.append(a) or real(*a))
+    bams = [AlignmentFile(path), AlignmentFile(twin)][:n_bams]
+    hdr = bams[0].header
+    tengine.pileup_window(bams, RefCache(fa), tengine.PileupConf(), 0,
+                          hdr.names[0], 1, hdr.lengths[0],
+                          [[0.0] * NCONTXTS for _ in bams],
+                          [[0] * NCONTXTS for _ in bams], CPU)
+    p, sid, stat, passm, P, nb, _device = caught[0]
+    assert nb == n_bams and len(p) > 10000 and 0 < passm.sum() < len(p)
+    _fused_matches_jax(p, sid, stat, passm, P, nb)
+
+
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_window_counts_edge_cases_match_jax(kind):
+    """Windows the real ones rarely are: shuffled data, two samples, every
+    datum on one site, no data, and passing codes in [21, 32), which the
+    JAX engine's counts[:, :21] drops from cm and cb (and which count in
+    the depth)."""
+    p, sid, stat, passm, P, n_bams = window_count_case(kind, seed=5)
+    got = _fused_matches_jax(p, sid, stat, passm, P, n_bams)
+    if kind == "code_21_to_31":
+        odd = passm & ((stat >> 4) * 3 + (stat & 0xF) >= 21)
+        assert odd.any()
+        assert int(got[:, :3].sum()) == int(got[:, 3:10].sum()) \
+            == int(passm.sum() - odd.sum())
+    if kind == "empty":
+        assert len(p) == 0 and not got.any()
+
+
+@pytest.mark.parametrize("where", ["site_high_not_passing", "site_negative",
+                                   "code_32_passing"])
+def test_window_counts_refuse_a_datum_out_of_range(where):
+    """Every datum counts in the depth, so a site out of range raises
+    whatever its pass flag; a code outside [0, 32) raises where it passes
+    (the JAX function would spill it into the next site's bins)."""
+    (sites, codes, ok), window = window_count_inputs(
+        *window_count_case("sorted", seed=2, P=50, n=40))
+    sites, codes, ok = (torch.from_numpy(a) for a in (sites, codes, ok))
+    if where == "site_high_not_passing":
+        sites[7], ok[7] = window, False
+    elif where == "site_negative":
+        sites[7] = -1
+    else:
+        codes[7], ok[7] = 32, True
+    for fn in (pileup_window_counts_plain, pileup_window_counts):
+        with pytest.raises(ValueError, match="1 data outside"):
+            fn(sites, codes, ok, window)
+    if where == "code_32_passing":
+        ok[7] = False
+        got = pileup_window_counts_plain(sites, codes, ok, window)
+        assert int(got[:, 10].sum()) == 40 and int(got[:, :3].sum()) == \
+            int(ok.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -295,3 +295,6 @@ def test_ptxas_resources_reads_registers_and_spills():
     assert kernel_label(
         "_ZN45_GLOBAL__N__3beff904_12_sw_global_cu_05e8c04916sw_global_"
         "kernelILi5ELb1EEEvPKvS2_PKiS4_") == "sw_global_kernel<5, true>"
+    assert kernel_label(
+        "_ZN48_GLOBAL__N__5c2e7a10_15_pileup_coun"
+        "t_cu_3d9b41f219pileup_count_kernelILb1EihEEvPKT0_PKT1_PKhlliiPi") == "pileup_count_kernel<true, int, unsigned char>"

@@ -66,6 +66,16 @@ def damage_mates(fq2, every=3, step=9):
         f.write("\n".join(lines) + "\n")
 
 
+def trim_fastq(path, n_bases):
+    """Rewrite FASTQ `path` with every read cut to its first n_bases."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i in range(1, len(lines), 2):  # the sequence and the quality lines
+        lines[i] = lines[i][:n_bases]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def add_indels(fq, every, seed):
     """Rewrite FASTQ `fq`: read i with i % every == every // 2 loses 1-3
     bases, read i with i % every == 0 (i > 0) gains 1-2, at a position at
@@ -449,3 +459,111 @@ def local_edge_case(seed, B, Lq, Lt, a=1, b_pen=2):
     endsc = np.where(rng.random(B) < 0.33, rng.integers(5, 80, B),
                      0x10000).astype(np.int32)
     return (q, qlens, t, tlens, m, matsel), (minsc, endsc, u8)
+
+
+# ---------------------------------------------------------------------------
+# the pileup window count (K9): a window's data as the engine makes them
+# ---------------------------------------------------------------------------
+
+# kinds of window: reads in coordinate order (one sample, two samples one
+# after the other), the same data shuffled (no chunk of the kernel stays
+# narrow), every datum on one site, no data, and passing codes in [21, 32)
+WINDOW_KINDS = ("sorted", "two_samples", "shuffled", "one_site", "empty",
+                "code_21_to_31")
+
+
+def window_count_case(kind, seed=0, P=700, n=4000, read_len=150):
+    """A window's data as the pileup engine hands them to _device_counts:
+    (p, sid, stat, passm, P, n_bams) as numpy, p the window-relative site
+    (int64), sid the sample, stat base << 4 | meth (base in [0, 7), meth in
+    [0, 3); for kind code_21_to_31 a twentieth of the data hold codes
+    base * 3 + meth in [21, 32)), passm the datum filter (nine in ten
+    pass). Reads of read_len bases (shorter where P is small) cover
+    consecutive sites from sorted starts, each sample's reads in order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_bams = 2 if kind == "two_samples" else 1
+    n = 0 if kind == "empty" else n
+    ln = max(1, min(read_len, P // 4))
+    n_reads = -(-n // ln)
+    sid = np.sort(rng.integers(0, n_bams, n_reads))
+    start = rng.integers(0, P - ln + 1, n_reads)
+    order = np.lexsort((start, sid))  # sample by sample, each in order
+    p = (start[order][:, None] + np.arange(ln)[None, :]).reshape(-1)[:n]
+    sid = np.repeat(sid[order], ln)[:n].astype(np.int64)
+    if kind == "one_site":
+        p[:] = P // 3
+    code = rng.integers(0, 7, n) * 3 + rng.integers(0, 3, n)
+    if kind == "code_21_to_31":
+        odd = rng.random(n) < 0.05
+        code[odd] = rng.integers(21, 32, int(odd.sum()))
+    stat = (code // 3) << 4 | code % 3
+    passm = rng.random(n) >= 0.1
+    if kind == "shuffled":
+        perm = rng.permutation(n)
+        p, sid, stat, passm = p[perm], sid[perm], stat[perm], passm[perm]
+    return p.astype(np.int64), sid, stat.astype(np.int64), passm, P, n_bams
+
+
+def window_count_inputs(p, sid, stat, passm, P, n_bams):
+    """The fused count's inputs for those data, as the engine stages them:
+    (int32 sites site * n_bams + sample, uint8 codes base * 3 + meth, bool
+    pass) as numpy, and the window P * n_bams."""
+    import numpy as np
+    return ((p * n_bams + sid).astype(np.int32),
+            ((stat >> 4) * 3 + (stat & 0xF)).astype(np.uint8),
+            np.asarray(passm, bool)), P * n_bams
+
+
+# ---------------------------------------------------------------------------
+# the chain scan (K6): occurrence streams at the scan's edges
+# ---------------------------------------------------------------------------
+
+def chain_edge_lanes(NC, l_pac, seed=0, jmax=1024):
+    """Occurrence streams of four lanes, each a list of records (qbeg, len,
+    rbeg, valid, rid, k) as mem_chain_batch visits them, with rbeg on both
+    sides of l_pac: a lane of jmax occurrences (a long read's seeds in
+    order, each with one to four occurrences on six loci 2000 apart, one
+    locus growing across l_pac; one seed in twenty repeated, which the
+    scan finds contained; one occurrence in twenty invalid); lanes of
+    exactly NC and of NC + 1 chains (one occurrence each, 500 apart, in a
+    shuffled order, so that inserts land everywhere); and a lane whose
+    second seed would append to a chain below l_pac from above it (pacrej),
+    then one that appends above."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    loci = l_pac - 600 + 2000 * np.arange(-3, 3)
+    long_lane, qb, last = [], 0, []
+    while len(long_lane) < jmax:
+        if last and rng.random() < 0.05:
+            long_lane += last
+            continue
+        ln = int(rng.integers(19, 40))
+        last = [(qb, ln, int(loci[i]) + qb + int(rng.integers(0, 2)),
+                 int(rng.random() >= 0.05), 0, k)
+                for k, i in enumerate(rng.permutation(6)[:rng.integers(1, 5)])]
+        long_lane += last
+        qb += int(rng.integers(1, 4))
+    lanes = [long_lane[:jmax]]
+    for m in (NC, NC + 1):
+        lanes.append([(10, 20, l_pac - 250 * m + 500 * int(i), 1, 0, 0)
+                      for i in rng.permutation(m)])
+    lanes.append([(0, 20, l_pac - 30, 1, 0, 0), (35, 20, l_pac + 5, 1, 0, 0),
+                  (70, 20, l_pac + 40, 1, 0, 0)])
+    return lanes
+
+
+def chain_planes(lanes, rdt):
+    """The scan's inputs for lanes of records: six [J, B] planes (rbeg of
+    dtype rdt, the others int32) and n_occ [B], as numpy."""
+    import numpy as np
+    J, B = max([len(r) for r in lanes] + [1]), len(lanes)
+    planes = [np.zeros((J, B), np.int32) for _ in range(6)]
+    planes[2] = planes[2].astype(rdt)
+    n_occ = np.zeros(B, np.int32)
+    for b, recs in enumerate(lanes):
+        n_occ[b] = len(recs)
+        for j, rec in enumerate(recs):
+            for c in range(6):
+                planes[c][j, b] = rec[c]
+    return planes, n_occ
