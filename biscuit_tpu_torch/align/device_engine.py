@@ -11,7 +11,9 @@ Batch flow per call:
   2. device: 3-pass SMEM seed collection (ops/seed_batch.collect_intv_flat,
      K3 with K5); lanes over its S-row capacity rerun smem.collect_intv
   3. device: batched SA walks for the first SA_PREFETCH_CAP occurrences of
-     every seed (ops/seed_batch.sa_batch, K4)
+     every seed: the seeder's rows, as they lie on the card, through K4's
+     interval entry (ops/seed_batch.sa_batch_intervals); the rows of lanes
+     the host seeded through its rank entry (sa_batch)
   4. device: the chain B-tree scan (chain.mem_chain_batch over
      ops/chain_batch.chain_scan_batch, K6); lanes over its caps, and every
      lane at -v4, run the host chain.mem_chain. Then host chain filtering
@@ -44,7 +46,8 @@ from ..config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE
 from ..ops import sw
 from ..align.io_helpers import read_clipping
 
-from ..ops.seed_batch import FMPair, collect_intv_batch, sa_batch
+from ..ops.seed_batch import (FMPair, collect_intv_batch, sa_batch,
+                              sa_batch_intervals)
 from ..ops.sw_extend import sw_extend_batch
 from ..ops.sw_global import decode_cigars, sw_global_cigar
 from ..ops.sw_local import sw_align_batch
@@ -67,9 +70,12 @@ _STAGE_T: Dict[str, float] = {}
 # rescue_lanes: the lanes sent to K7, forward and reverse passes together.
 # cigar_late_lanes: global alignments that worker2 asked for and the CIGAR
 # prefill had not computed, run then through K2 on the device.
+# sa_rows, sa_jobs: seed rows and occurrences sent to K4's interval entry;
+# sa_overflow_jobs: occurrences of host-seeded lanes sent to its rank entry.
 _COUNTS = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
            "traceback_overflow_lanes": 0, "rescue_lanes": 0,
-           "cigar_late_lanes": 0}
+           "cigar_late_lanes": 0, "sa_rows": 0, "sa_jobs": 0,
+           "sa_overflow_jobs": 0}
 # stages whose work runs on the device, as the JAX engine counts them
 _DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue")
 
@@ -124,6 +130,18 @@ def pack_lanes(lanes):
     return q, lens, parents
 
 
+def _sa_lookup(pos, off, kmax, r0, fm):
+    """sa_lookup(seed_i, k, x0) of a lane whose seed rows start at row r0 of
+    a K4 call: position pos[off[r] + k] for k below the row's kmax, the
+    scalar walk of strand fm beyond."""
+    def sa_lookup(seed_i, k, x0):
+        r = r0 + seed_i
+        if k < kmax[r]:
+            return int(pos[off[r] + k])
+        return fm.sa_s(x0 + k)  # beyond prefetch: scalar walk
+    return sa_lookup
+
+
 class DeviceAligner:
     def __init__(self, st: AlignerState, device):
         self.st = st
@@ -156,10 +174,13 @@ class DeviceAligner:
         """lanes: list of (seq, parent). Returns per-lane seed lists and SA
         position lookups."""
         st = self.st
+        fmp = self.fmpair
         with _stage("seed"):
-            seeds, overflow = collect_intv_batch(
-                self.fmpair, *(self._tensor(a) for a in pack_lanes(lanes)),
-                opt)
+            q, lens, parents = pack_lanes(lanes)
+            parents = self._tensor(parents)
+            seeds, overflow, lane_of, rows = collect_intv_batch(
+                fmp, self._tensor(q), self._tensor(lens), parents, opt,
+                on_device=True)
             # lanes over the seeder's S rows: the exact host seeder
             for i in np.nonzero(overflow)[0]:
                 s, p = lanes[i]
@@ -168,41 +189,49 @@ class DeviceAligner:
             _COUNTS["seed_overflow_lanes"] += int(overflow.sum())
 
         with _stage("sa"):
-            # batched SA for up to SA_PREFETCH_CAP occurrences per seed
-            jobs_which: List[int] = []
-            jobs_rank: List[int] = []
-            index: List[List[Tuple[int, int]]] = []  # per lane: (offset, kmax)
-            off = 0
-            for (_s, p), lane_seeds in zip(lanes, seeds):
-                lane_idx = []
-                for (_sb, _se, x0, _x1, size) in lane_seeds:
-                    kmax = min(size, SA_PREFETCH_CAP)
-                    lane_idx.append((off, kmax))
-                    jobs_which.extend([p] * kmax)
-                    jobs_rank.extend(range(x0, x0 + kmax))
-                    off += kmax
-                index.append(lane_idx)
-            if jobs_rank:
-                rdt = np.int64 if self.fmpair.wide else np.int32
-                pos = sa_batch(self.fmpair,
-                               self._tensor(np.asarray(jobs_which, np.int32)),
-                               self._tensor(np.asarray(jobs_rank, rdt)))
-                pos = pos.cpu().numpy()
-            else:
-                pos = np.zeros(0, np.int32)
+            # the first SA_PREFETCH_CAP occurrences of every seed. The
+            # seeder's rows go to K4's interval entry as they lie on the
+            # card, in one call; the rows of host-seeded lanes go to its rank
+            # entry, expanded here, in another
+            sizes = np.fromiter((r[4] for i, lane in enumerate(seeds)
+                                 if not overflow[i] for r in lane), np.int64)
+            kmax = np.minimum(sizes, SA_PREFETCH_CAP)
+            off = np.cumsum(kmax) - kmax
+            kmax_row = rows[:, 4].clamp(max=SA_PREFETCH_CAP).long()
+            pos = sa_batch_intervals(
+                fmp, parents.index_select(0, lane_of), rows[:, 2], kmax_row,
+                torch.cumsum(kmax_row, 0) - kmax_row, int(kmax.sum()))
+            ov = [(lanes[i][1], r[2], min(r[4], SA_PREFETCH_CAP))
+                  for i in np.nonzero(overflow)[0] for r in seeds[i]]
+            ov_which, ov_x0, ov_kmax = (np.asarray([r[c] for r in ov], np.int64)
+                                        for c in range(3))
+            ov_off = np.cumsum(ov_kmax) - ov_kmax
+            n_ov = int(ov_kmax.sum())
+            pos_ov = np.zeros(0, np.int64)
+            if n_ov:
+                rdt = np.int64 if fmp.wide else np.int32
+                ranks = (np.repeat(ov_x0 - ov_off, ov_kmax)
+                         + np.arange(n_ov)).astype(rdt)
+                pos_ov = sa_batch(fmp, self._tensor(np.repeat(
+                    ov_which, ov_kmax).astype(np.int32)),
+                    self._tensor(ranks)).cpu().numpy()
+            pos = pos.cpu().numpy()
+            _COUNTS["sa_rows"] += int(kmax.size)
+            _COUNTS["sa_jobs"] += int(kmax.sum())
+            _COUNTS["sa_overflow_jobs"] += n_ov
 
         lookups = []
-        for (_s, p), lane_idx in zip(lanes, index):
-            fm = st.fm[p]
-
-            def mk(lane_idx=lane_idx, fm=fm):
-                def sa_lookup(seed_i, k, x0):
-                    o, kmax = lane_idx[seed_i]
-                    if k < kmax:
-                        return int(pos[o + k])
-                    return fm.sa_s(x0 + k)  # beyond prefetch: scalar walk
-                return sa_lookup
-            lookups.append(mk())
+        kmax, off, ov_kmax, ov_off = (a.tolist() for a in (kmax, off, ov_kmax,
+                                                           ov_off))
+        r_dev = r_ov = 0
+        for i, ((_s, p), lane_seeds) in enumerate(zip(lanes, seeds)):
+            if overflow[i]:
+                lookups.append(_sa_lookup(pos_ov, ov_off, ov_kmax, r_ov,
+                                          st.fm[p]))
+                r_ov += len(lane_seeds)
+            else:
+                lookups.append(_sa_lookup(pos, off, kmax, r_dev, st.fm[p]))
+                r_dev += len(lane_seeds)
         return seeds, lookups
 
     # ------------------------------------------------------------------

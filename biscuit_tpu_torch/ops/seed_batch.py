@@ -5,11 +5,12 @@ needs: the fused occ+BWT table (`_fused_tab`, copied as is), `FMPair` (the
 tables carried to the device), occ4 and the bidirectional extend (K5,
 `occ4_sel`/`extend_sel`), the 3-pass seed collection (K3, the contract of
 `collect_intv_flat_sm`) and `sa_batch` (K4, the bwt_sa walk for a batch of
-ranks).
+ranks), with `sa_batch_intervals`, the same walk for the ranks of a list of
+seed intervals as the seeder leaves them on the device.
 
-`collect_intv_flat` and `sa_batch` launch the CUDA kernels
-kernels/smem_seed.cu and kernels/sa_walk.cu on a CUDA device and run their
-plain versions on the CPU. torch on the CPU has no popcount and no `>>` or
+`collect_intv_flat`, `sa_batch` and `sa_batch_intervals` launch the CUDA
+kernels kernels/smem_seed.cu and kernels/sa_walk.cu on a CUDA device and run
+their plain versions on the CPU. torch on the CPU has no popcount and no `>>` or
 `~` on uint32, so the table is held as int32 (the uint32 bit pattern) and
 widened to int64 and masked before any shift; the plain versions compute
 every rank in int64 and hand back the rank dtype.
@@ -83,6 +84,8 @@ class FMPair:
     L2          [2, 5] int64
     primary     [2] int64
     sa_samples  [2, n_sa] int32 (narrow) | int64 (wide); rank-0 entry -1
+    host_consts L2[0][0..3], L2[1][0..3], primary[0], primary[1] as ints,
+                which K4 takes by value (no read of the device tables)
     Narrow indexes walk int32 ranks, wide ones (strands >= 2^31) int64."""
     tab: torch.Tensor
     L2: torch.Tensor
@@ -91,6 +94,7 @@ class FMPair:
     seq_len: int
     wide: bool
     sa_intv: int
+    host_consts: tuple
 
     @property
     def rdt(self) -> torch.dtype:
@@ -108,7 +112,10 @@ class FMPair:
             tab=dev(np.asarray(tab, np.uint32).view(np.int32), np.int32),
             L2=dev(L2, np.int64), primary=dev(primary, np.int64),
             sa_samples=dev(np.asarray(sa_samples).astype(sa_dt), sa_dt),
-            seq_len=int(seq_len), wide=bool(wide), sa_intv=int(sa_intv))
+            seq_len=int(seq_len), wide=bool(wide), sa_intv=int(sa_intv),
+            host_consts=tuple(int(v) for v in np.concatenate([
+                np.asarray(L2, np.int64)[:, :4].reshape(-1),
+                np.asarray(primary, np.int64)])))
 
     @classmethod
     def from_index(cls, idx: BisIndex, device) -> "FMPair":
@@ -158,10 +165,12 @@ def _inv_psi_plain(fm: FMPair, which: torch.Tensor, kk: torch.Tensor):
     return torch.where(kk == prim, torch.zeros_like(nxt), nxt)
 
 
-def sa_batch_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def sa_batch_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor,
+                   steps: torch.Tensor = None) -> torch.Tensor:
     """Plain torch bwt_sa walk: a vectorized while over the jobs still
     walking. which [n] int32 in {0, 1}, k [n] ranks -> positions [n] of the
-    rank dtype."""
+    rank dtype. steps: an int64 [n] tensor that receives each job's number
+    of inverse-Psi steps (what K4's bound counts)."""
     w = which.long()
     kk = k.long().clone()
     add = torch.zeros_like(kk)
@@ -172,8 +181,26 @@ def sa_batch_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Te
         kk[live] = nk
         add[live] += 1
         live = live[(nk & mask) != 0]
+    if steps is not None:
+        steps.copy_(add)
     shift = fm.sa_intv.bit_length() - 1
     return (add + fm.sa_samples[w, kk >> shift].long()).to(fm.rdt)
+
+
+def sa_batch_intervals_plain(fm: FMPair, which_row, x0_row, kmax_row,
+                             off_row, total: int,
+                             steps: torch.Tensor = None) -> torch.Tensor:
+    """The contract of `sa_batch_intervals`: each row expanded to its ranks
+    (repeat_interleave), then `sa_batch_plain`, each position scattered to
+    out[off_row[r] + i]. steps: as for sa_batch_plain, in row order."""
+    dev = x0_row.device
+    kmax = kmax_row.long()
+    row = torch.repeat_interleave(torch.arange(kmax.numel(), device=dev), kmax)
+    within = torch.arange(row.numel(), device=dev) - (kmax.cumsum(0) - kmax)[row]
+    pos = sa_batch_plain(fm, which_row[row], x0_row.long()[row] + within, steps)
+    out = torch.empty(int(total), dtype=fm.rdt, device=dev)
+    out[off_row.long()[row] + within] = pos
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -663,9 +690,10 @@ def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
 
 
 def collect_intv_batch(fm: FMPair, reads, lens, parents, opt,
-                       S: int = SEED_CAP):
+                       S: int = SEED_CAP, on_device: bool = False):
     """collect_intv_flat as per-lane lists of (start, end, x0, x1, size)
-    tuples, with the overflow mask as numpy."""
+    tuples, with the overflow mask as numpy. on_device: also (lane_of,
+    rows) as the seeder left them on the device, for K4's interval entry."""
     lane_of, rows, ov = collect_intv_flat(fm, reads, lens, parents, opt, S)
     B = reads.shape[0]
     counts = np.bincount(lane_of.cpu().numpy(), minlength=B)
@@ -674,39 +702,101 @@ def collect_intv_batch(fm: FMPair, reads, lens, parents, opt,
     for c in counts.tolist():
         out.append(flat[o:o + c])
         o += c
+    if on_device:
+        return out, ov.cpu().numpy(), lane_of, rows
     return out, ov.cpu().numpy()
 
 
-# (tab, L2, primary, sa_samples, which, k, n64, n_sa, sa_shift, out, n)
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int,
-                                                      ctypes.c_void_p,
-                                                      ctypes.c_int64]
+# (wide, intervals, tab, sa, consts, n64, n_sa, sa_shift, which, x0, kmax,
+#  off, n_rows, out, total, counter)
+_SA_SIG = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+           + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+           + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
 
 
 def _lib():
-    return kernels.load("sa_walk", {"sa_walk_narrow": _SIG,
-                                    "sa_walk_wide": _SIG})
+    lib = kernels.load("sa_walk", {"sa_walk_launch": _SA_SIG})
+    lib.sa_walk_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.sa_walk_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def sa_occupancy(wide: bool, intervals: bool) -> tuple:
+    """(warps, walks in flight) of K4 one SM holds at once, from the CUDA
+    occupancy calculator."""
+    lib = _lib()
+    warps, walks = ctypes.c_int(), ctypes.c_int()
+    err = lib.sa_walk_occupancy(int(wide), int(intervals),
+                                ctypes.byref(warps), ctypes.byref(walks))
+    if err:
+        raise RuntimeError("sa_walk_occupancy: "
+                           + lib.kernel_error_string(err).decode())
+    return warps.value, walks.value
+
+
+def _launch_sa(fm: FMPair, which, x0, kmax, off, out, counter) -> None:
+    """Launch K4 on prepared inputs (contiguous, on fm's device; which
+    int32, x0 of the rank dtype, kmax int32 and off int64 or both None for
+    the rank entry), into out, with counter two int32 words that are zero
+    (the kernel leaves them zero). No host sync."""
+    intervals = kmax is not None
+    extra = (kmax, off) if intervals else ()
+    dev = kernels.check_cuda(fm.tab, fm.sa_samples, which, x0, *extra, out,
+                             counter)
+    if fm.tab.data_ptr() % 16:
+        raise ValueError("K4 reads the fused table's rows as 16-byte vectors")
+    n_rows = x0.numel()
+    kernels.launch(_lib(), "sa_walk_launch",
+                   "sa_walk_intervals" if intervals else "sa_walk", dev,
+                   int(fm.wide), int(intervals),
+                   kernels.ptr(fm.tab), kernels.ptr(fm.sa_samples),
+                   (ctypes.c_int64 * 10)(*fm.host_consts), fm.tab.shape[1],
+                   fm.sa_samples.shape[1], fm.sa_intv.bit_length() - 1,
+                   kernels.ptr(which), kernels.ptr(x0),
+                   kernels.ptr(kmax) if intervals else None,
+                   kernels.ptr(off) if intervals else None, n_rows,
+                   kernels.ptr(out), out.numel(), kernels.ptr(counter))
 
 
 def sa_batch(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Batched SA lookup: which [n] int32 strand ids, k [n] ranks (the rank
-    dtype) -> text positions [n] of the rank dtype. K4 on CUDA (one thread
-    per job), the plain walk on the CPU."""
+    dtype) -> text positions [n] of the rank dtype. K4's rank entry on CUDA,
+    the plain walk on the CPU. No host sync."""
     if kernels.route(k) == "plain":
         return sa_batch_plain(fm, which, k)
     which = which.to(torch.int32).contiguous()
     k = k.to(fm.rdt).contiguous()
-    dev = kernels.check_cuda(fm.tab, which, k)
     n = k.numel()
     kernels.check_lanes(n, which, k)
-    out = torch.empty(n, dtype=fm.rdt, device=dev)
-    if n == 0:
-        return out
-    n64, n_sa = fm.tab.shape[1], fm.sa_samples.shape[1]
-    fn = "sa_walk_wide" if fm.wide else "sa_walk_narrow"
-    kernels.launch(_lib(), fn, "sa_walk", dev,
-                   kernels.ptr(fm.tab), kernels.ptr(fm.L2),
-                   kernels.ptr(fm.primary), kernels.ptr(fm.sa_samples),
-                   kernels.ptr(which), kernels.ptr(k), n64, n_sa,
-                   fm.sa_intv.bit_length() - 1, kernels.ptr(out), n)
+    out = torch.empty(n, dtype=fm.rdt, device=k.device)
+    if n:
+        counter = torch.zeros(2, dtype=torch.int32, device=k.device)
+        _launch_sa(fm, which, k, None, None, out, counter)
+    return out
+
+
+def sa_batch_intervals(fm: FMPair, which_row: torch.Tensor,
+                       x0_row: torch.Tensor, kmax_row: torch.Tensor,
+                       off_row: torch.Tensor, total: int) -> torch.Tensor:
+    """Batched SA lookup of seed intervals, in the layout of the hybrid
+    engine's seeder: row r asks for ranks x0_row[r] .. x0_row[r] +
+    kmax_row[r] - 1 of strand which_row[r] (0: daughter, 1: parent) and
+    gets their text positions at out[off_row[r] + i]. Returns out [total]
+    of the rank dtype; the caller gives total (with off_row the exclusive
+    prefix sum of kmax_row, the rows fill out exactly) and every rank lies in
+    [0, seq_len]. K4's interval entry on CUDA (the rows stay on the card: no
+    expansion, no host sync), sa_batch_intervals_plain on the CPU."""
+    if kernels.route(x0_row) == "plain":
+        return sa_batch_intervals_plain(fm, which_row, x0_row, kmax_row,
+                                        off_row, total)
+    which_row = which_row.to(torch.int32).contiguous()
+    x0_row = x0_row.to(fm.rdt).contiguous()
+    kmax_row = kmax_row.to(torch.int32).contiguous()
+    off_row = off_row.to(torch.int64).contiguous()
+    kernels.check_lanes(x0_row.numel(), which_row, kmax_row, off_row)
+    out = torch.empty(int(total), dtype=fm.rdt, device=x0_row.device)
+    if x0_row.numel() and total:
+        counter = torch.zeros(2, dtype=torch.int32, device=x0_row.device)
+        _launch_sa(fm, which_row, x0_row, kmax_row, off_row, out, counter)
     return out

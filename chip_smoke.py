@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` and `pileup`
         of this tree and of another checkout side by side on the data of
-        phases 4, 4b and 6)
+        phases 4, 4b and 6, and K6's and K4's launches of both trees on the
+        same inputs)
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
@@ -20,7 +21,14 @@ Phases, one line each (more for the kernel table):
      fill, early breaks taken off) and, for the count scatter-add, the time
      of the one PyTorch call
      that computes it; the seeder and the SA walk also on a 50 Mbp index
-     (tables twice the L2). The three DP kernels that give a warp a lane
+     (tables twice the L2). The SA walk (K4) runs both entries, ranks and
+     seed intervals, on 2^20 random ranks (and rows of about as many jobs)
+     at sa_intv 4, 16 (the wide twin) and 32 (a view of the sampled
+     array) on 5 and 50 Mbp, with its walk-step bound (the rows its walks
+     read, counted by the plain walk) beside the one-sample floor, on the
+     edge rows of tests/torch_testdata.py, a skewed list (one 31-step walk
+     among sampled ranks), job lists longer than the grid's walk slots,
+     and the engine's own call. The three DP kernels that give a warp a lane
      (K1 sw_extend, K7 sw_local, K2 sw_global) also run the edge lanes of
      tests/torch_testdata.py at query widths that launch every compiled
      strip width, on uint8 and int32 codes, under e_ins of 0, 1 and 3, and
@@ -220,6 +228,28 @@ def chain_scan_inputs(opt, idx, fq, dev):
     return caught[0]
 
 
+def sa_engine_inputs(idx, fq, dev):
+    """K4's interval entry as the engine calls it for the first N_READS
+    reads of fq, both strands, caught at the entry: (fm, which_row, x0_row,
+    kmax_row, off_row, total)."""
+    from biscuit_tpu_torch.config import MemOpt, MEM_F_NO_MULTI
+    from biscuit_tpu_torch.io.fastq import fastq_iter, read_batch
+    from biscuit_tpu_torch.align import device_engine
+    from biscuit_tpu_torch.align.pipeline import AlignerState
+    opt = MemOpt()
+    opt.flag |= MEM_F_NO_MULTI
+    seqs = read_batch(fastq_iter(fq), None, 1 << 60)[:N_READS]
+    engine = device_engine.DeviceAligner(AlignerState(idx), dev)
+    caught = []
+    real = device_engine.sa_batch_intervals
+    device_engine.sa_batch_intervals = lambda *a: caught.append(a) or real(*a)
+    try:
+        engine._collect_seeds(opt, [(s, p) for s in seqs for p in (0, 1)])
+    finally:
+        device_engine.sa_batch_intervals = real
+    return caught[0]
+
+
 def lanes_of(fq, n_reads):
     """The seeder's input for the first n_reads of fq, each read converted
     both ways as the engine plans SE lanes: (reads [2n, L] int32, lens,
@@ -363,6 +393,55 @@ def main() -> int:
         return smoke(work)
 
 
+def k4_ab_inputs(work, fa, idx):
+    """K4's inputs for `--ab`, in files both trees read: the phase-4 tables
+    (sa_intv 4), their wide twin (sa_intv 16), their sa_intv-32 view, a 50
+    Mbp index and its view, each with 2^20 random ranks. Returns {tag:
+    (path, walk-step bound ms, one-sample floor ms)}, the bounds from this
+    tree's plain walk on the card (the same whatever implements K4)."""
+    import numpy as np
+    import torch
+    from torch_testdata import make_dataset, sa_intv_view
+    from biscuit_tpu_torch.index.build import build_index
+    from biscuit_tpu_torch.ops import seed_batch
+    dev = torch.device("cuda", 0)
+    os.environ["BISCUIT_TPU_WIDE_INDEX"] = "1"
+    try:
+        wide = build_index(fa)
+    finally:
+        del os.environ["BISCUIT_TPU_WIDE_INDEX"]
+    _bfa, _bfq, big = make_dataset(os.path.join(work, "big"),
+                                   genome_size=BIG_GENOME, n_reads=16,
+                                   seed=SEED)
+    rng = np.random.default_rng(SEED + 4)
+    shapes = {}
+    for tag, base, view in (("5 Mbp sa_intv 4", idx, 0),
+                            ("5 Mbp wide sa_intv 16", wide, 0),
+                            ("5 Mbp sa_intv 32 view", idx, 32),
+                            ("50 Mbp sa_intv 4", big, 0),
+                            ("50 Mbp sa_intv 32 view", big, 32)):
+        fm = seed_batch.FMPair.from_index(base, dev)
+        if view:
+            fm = sa_intv_view(fm, view)
+        n = 1 << 20
+        ranks = rng.integers(0, fm.seq_len + 1, n).astype(
+            np.int64 if fm.wide else np.int32)
+        which = rng.integers(0, 2, n).astype(np.int32)
+        steps = torch.zeros(n, dtype=torch.int64, device=dev)
+        seed_batch.sa_batch_plain(fm, torch.from_numpy(which).to(dev),
+                                  torch.from_numpy(ranks).to(dev), steps)
+        rb = fm.sa_samples.element_size()
+        path = os.path.join(work, f"k4_{len(shapes)}.npz")
+        np.savez(path, tab=fm.tab.cpu().numpy().view(np.uint32),
+                 L2=fm.L2.cpu().numpy(), primary=fm.primary.cpu().numpy(),
+                 sa=fm.sa_samples.cpu().numpy(), seq_len=fm.seq_len,
+                 wide=fm.wide, intv=fm.sa_intv, ranks=ranks, which=which)
+        shapes[tag] = (path, bound(int(steps.sum()) * fm.tab.shape[-1] * 4
+                                   + n * (3 * rb + 4), 0)[0],
+                       bound(n * (3 * rb + 4), 0)[0])
+    return shapes
+
+
 def align_ab(work: str, other: str) -> int:
     """`align` and `pileup` of this tree against the tree `other` (another
     checkout that holds a `biscuit_tpu_torch/`) on the data of phases 4, 4b
@@ -392,6 +471,7 @@ def align_ab(work: str, other: str) -> int:
         os.path.join(work, "pe"), genome_size=GENOME, n_reads=N_PAIRS,
         read_len=READ_LEN, seed=SEED, snp_rate=0.001, pe=True, index=False)
     damage_mates(fq2, DAMAGE_EVERY)
+    k4_shapes = k4_ab_inputs(work, fa, idx)
     pdir = os.path.join(work, "plp")
     gfa, gfq, _ = make_dataset(pdir, genome_size=PLP_GENOME, n_reads=PLP_READS,
                                read_len=READ_LEN, seed=SEED + 1, snp_rate=0.005)
@@ -442,7 +522,34 @@ def align_ab(work: str, other: str) -> int:
             "    b.record()\n"
             "    torch.cuda.synchronize()\n"
             "    return a.elapsed_time(b) / reps\n"
-            "print(f'[ab k6] {ms(wrap):.4f} {ms(go):.4f}', file=sys.stderr)\n")
+            "print(f'[ab k6] {ms(wrap):.4f} {ms(go):.4f}', file=sys.stderr)\n"
+            "import hashlib\n"
+            "import numpy as np\n"
+            "from biscuit_tpu_torch.ops import seed_batch as sb\n"
+            "dev = torch.device('cuda', 0)\n"
+            f"for tag, path in {[(t, x[0]) for t, x in k4_shapes.items()]!r}:\n"
+            "    z = np.load(path)\n"
+            "    fm = sb.FMPair.from_numpy(z['tab'], z['L2'], z['primary'], "
+            "int(z['seq_len']), z['sa'], bool(z['wide']), int(z['intv']), dev)\n"
+            "    which = torch.from_numpy(z['which']).to(dev)\n"
+            "    ranks = torch.from_numpy(z['ranks']).to(dev)\n"
+            "    out = torch.empty_like(ranks)\n"
+            "    if hasattr(sb, '_launch_sa'):\n"
+            "        ctr = torch.zeros(2, dtype=torch.int32, device=dev)\n"
+            "        go = lambda: sb._launch_sa(fm, which, ranks, None, None, out, ctr)\n"
+            "    else:\n"
+            "        fn = 'sa_walk_wide' if fm.wide else 'sa_walk_narrow'\n"
+            "        go = lambda: kernels.launch(sb._lib(), fn, 'sa_walk', dev, "
+            "*map(kernels.ptr, (fm.tab, fm.L2, fm.primary, fm.sa_samples, which, "
+            "ranks)), fm.tab.shape[1], fm.sa_samples.shape[1], "
+            "fm.sa_intv.bit_length() - 1, kernels.ptr(out), ranks.numel())\n"
+            "    wrap = lambda: sb.sa_batch(fm, which, ranks)\n"
+            "    go()\n"
+            "    assert torch.equal(wrap(), out)\n"
+            "    h = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:12]\n"
+            "    print(f'[ab k4] {tag}|{ms(wrap, 10):.4f}|{ms(go, 20):.4f}|{h}', "
+            "file=sys.stderr)\n")
+    k4_digest = {}
     for tag, tree in (("other", other), ("this", REPO), ("this", REPO),
                       ("other", other)):
         r = subprocess.run(
@@ -456,6 +563,11 @@ def align_ab(work: str, other: str) -> int:
                           r"([\d.]+) real sec", r.stderr)
         plp = re.findall(r"\[ab pileup\] ([\d.]+)", r.stderr)
         k6_ms = re.findall(r"\[ab k6\] ([\d.]+) ([\d.]+)", r.stderr)[0]
+        k4_got = re.findall(r"\[ab k4\] ([^|]+)\|([\d.]+)\|([\d.]+)\|(\w+)",
+                            r.stderr)
+        for t, wrap_ms, alone_ms, digest in k4_got:
+            if k4_digest.setdefault(t, digest) != digest:
+                raise AssertionError(f"K4 {t}: the two trees' positions differ")
         with open(vcf) as f:
             n_sites = sum(1 for ln in f if ln[0] != "#")
         say(f"[ab] {tag}: real s of PE (cold), SE, PE, SE, PE: "
@@ -464,6 +576,11 @@ def align_ab(work: str, other: str) -> int:
             + " ".join(f"{n_sites / float(x):.1f}" for x in plp)
             + f" sites/s); K6 on phase 3's inputs ([J, B] = {list(sa_shape)}): the "
             f"wrapper {k6_ms[0]} ms, the launch alone {k6_ms[1]} ms [{card}]")
+        say(f"[ab] {tag}: K4's rank entry on 2^20 random ranks, the wrapper / "
+            f"the launch alone (ms): " + "; ".join(
+                f"{t}: {w} / {a} (walk-step bound {k4_shapes[t][1]:.6f}, "
+                f"floor {k4_shapes[t][2]:.6f})" for t, w, a, _d in k4_got)
+            + f" [{card}]")
     return 0
 
 
@@ -776,39 +893,219 @@ def smoke(work: str) -> int:
         int((ql + tl).sum()) + nbytes(ql, tl, w, *kt()), 4 * int((ql + tl).sum()),
         paths=())
 
-    # K4: 2^20 random ranks on the phase-4 index
+    # K4, the SA walk: both entries on 2^20 random ranks (the interval entry
+    # on seed-interval rows of about as many ranks) at three step lengths:
+    # the phase-4 index (sa_intv 4), its wide twin (int64 ranks, 12-column
+    # rows, sa_intv 16) and an sa_intv-32 view of it (the reference
+    # format's sampling); then the edge rows, a skewed list, job lists
+    # longer than the grid's walk slots, and the engine's own call. The
+    # 50 Mbp index follows with phase 3's 50 Mbp block.
+    from torch_testdata import SA_ROW_CASES, sa_intv_view, sa_rows
     fm = seed_batch.FMPair.from_index(idx, dev)
     n = 1 << 20
     ranks = T(rng.integers(0, fm.seq_len + 1, n).astype(
         np.int64 if fm.wide else np.int32))
     which = T(rng.integers(0, 2, n).astype(np.int32))
-    ks = lambda: seed_batch.sa_batch(fm, which, ranks)
-    ps = lambda: seed_batch.sa_batch_plain(fm, which, ranks)
-    err = compare("sa_walk", ks(), ps())
-    # the other instance of the kernel: the same genome in the wide layout
-    # (int64 ranks, 12-column rows), which strands of 2^31 bases and more use
     from biscuit_tpu_torch.index.build import build_index
     os.environ["BISCUIT_TPU_WIDE_INDEX"] = "1"
     try:
         fmw = seed_batch.FMPair.from_index(build_index(fa), dev)
     finally:
         del os.environ["BISCUIT_TPU_WIDE_INDEX"]
-    if not fmw.wide or fm.wide:
-        raise AssertionError("expected a narrow and a wide index")
-    ranks_w = ranks.long()
-    err = max(err, compare("sa_walk wide",
-                           seed_batch.sa_batch(fmw, which, ranks_w),
-                           seed_batch.sa_batch_plain(fmw, which, ranks_w)))
-    row("sa_walk", "sa_walk.cu", "biscuit_tpu/ops/seed_batch.py:1983", err,
-        cuda_ms(ks, 10), cuda_ms(ps, 2),
-        "2^20 ranks, narrow index (times), wide index (equality)",
-        # a floor: every rank reads at least its SA sample; the table rows
-        # its walk gathers on the way there are not counted
-        nbytes(which, ranks, ks()) + n * fm.sa_samples.element_size(), 4 * n)
+    if not fmw.wide or fm.wide or fmw.sa_intv != 16:
+        raise AssertionError("expected a narrow and a wide (sa_intv 16) index")
+    krng = np.random.default_rng(SEED + 4)
+    k4_err = {"sa_walk": 0, "sa_walk_intervals": 0}
+
+    def k4_rows(f, case, n_rows=1 << 17):
+        """sa_rows of one case as the interval entry takes them."""
+        w, x0, km = sa_rows(case, f.seq_len, f.host_consts[8:], f.sa_intv,
+                            n=n_rows, seed=int(krng.integers(1 << 30)))
+        return (T(w.astype(np.int32)), T(x0).to(f.rdt),
+                T(km.astype(np.int32)), T(np.cumsum(km) - km), int(km.sum()))
+
+    def k4_check(tag, f, which, ranks, rows):
+        """Both entries against their plain twins (exactly), each launching
+        once; returns the plain walk's step counts of the ranks and of the
+        rows' jobs."""
+        steps = torch.zeros(ranks.numel(), dtype=torch.int64, device=dev)
+        isteps = torch.zeros(rows[4], dtype=torch.int64, device=dev)
+        k4_err["sa_walk"] = max(k4_err["sa_walk"], compare(
+            f"sa_walk {tag}", launched("sa_walk", lambda: seed_batch.sa_batch(
+                f, which, ranks), 1 if ranks.numel() else 0),
+            seed_batch.sa_batch_plain(f, which, ranks, steps)))
+        k4_err["sa_walk_intervals"] = max(k4_err["sa_walk_intervals"], compare(
+            f"sa_walk_intervals {tag}", launched(
+                "sa_walk_intervals",
+                lambda: seed_batch.sa_batch_intervals(f, *rows),
+                1 if rows[4] else 0),
+            seed_batch.sa_batch_intervals_plain(f, *rows, steps=isteps)))
+        return steps, isteps
+
+    def k4_bounds(f, steps, isteps, rows):
+        """(walk-step bound of the ranks, of the rows, the one-sample floor)
+        in bytes: every step reads its row once, every job its sample once
+        and writes its position; the ranks' inputs (rank and strand) or the
+        rows' (strand, x0, kmax, off) are read once. The floor counts no
+        row."""
+        rb, tb = f.sa_samples.element_size(), f.tab.shape[-1] * 4
+        n_r, n_j = steps.numel(), isteps.numel()
+        return (int(steps.sum()) * tb + n_r * (rb + 4 + rb + rb),
+                int(isteps.sum()) * tb + nbytes(*rows[:4]) + n_j * 2 * rb,
+                n_r * (rb + 4 + rb + rb))
+
+    def k4_times(tag, f, which, ranks, rows, plain_reps=1):
+        """Both entries equal to their plain twins, their wrappers and
+        launches alone, the plain versions' times, the walk-step bounds and
+        the floor; printed, and returned as a dict."""
+        steps, isteps = k4_check(tag, f, which, ranks, rows)
+        out = torch.empty_like(ranks)
+        iout = torch.empty(rows[4], dtype=f.rdt, device=dev)
+        ctr = torch.zeros(2, dtype=torch.int32, device=dev)
+        alone = lambda: seed_batch._launch_sa(f, which, ranks, None, None,
+                                              out, ctr)
+        ialone = lambda: seed_batch._launch_sa(f, *rows[:4], iout, ctr)
+        wrap = lambda: seed_batch.sa_batch(f, which, ranks)
+        iwrap = lambda: seed_batch.sa_batch_intervals(f, *rows)
+        alone()
+        ialone()
+        compare(f"sa_walk {tag}, the launch alone", out, wrap())
+        compare(f"sa_walk_intervals {tag}, the launch alone", iout, iwrap())
+        t = {"wrapper": cuda_ms(wrap, 10), "alone": cuda_ms(alone, 20),
+             "plain": cuda_ms(lambda: seed_batch.sa_batch_plain(
+                 f, which, ranks), plain_reps, warm=False),
+             "i_wrapper": cuda_ms(iwrap, 10), "i_alone": cuda_ms(ialone, 20),
+             "i_plain": cuda_ms(lambda: seed_batch.sa_batch_intervals_plain(
+                 f, *rows), plain_reps, warm=False)}
+        walk, iwalk, floor = k4_bounds(f, steps, isteps, rows)
+        t.update(bytes=walk, i_bytes=iwalk, steps=int(steps.sum()),
+                 i_steps=int(isteps.sum()), bound=bound(walk, 0)[0],
+                 i_bound=bound(iwalk, 0)[0], floor=bound(floor, 0)[0])
+        say(f"[3] sa_walk {tag}: {ranks.numel()} ranks, {t['steps']} steps "
+            f"(mean {t['steps'] / max(ranks.numel(), 1):.3f}, longest "
+            f"{int(steps.max())}): the wrapper {t['wrapper']:.4f} ms, the "
+            f"launch alone {t['alone']:.4f} ms, plain {t['plain']:.4f} ms, "
+            f"walk-step bound {t['bound']:.6f} ms ({walk} bytes), one-sample "
+            f"floor {t['floor']:.6f} ms; intervals: {rows[0].numel()} rows, "
+            f"{rows[4]} jobs, {t['i_steps']} steps: the wrapper "
+            f"{t['i_wrapper']:.4f} ms, the launch alone {t['i_alone']:.4f} "
+            f"ms, plain {t['i_plain']:.4f} ms, walk-step bound "
+            f"{t['i_bound']:.6f} ms ({iwalk} bytes) [{card}]")
+        return t, steps
+
+    f32 = sa_intv_view(fm, 32)
+    k4_shapes = {"5 Mbp sa_intv 4": (fm, ranks),
+                 "5 Mbp wide sa_intv 16": (fmw, ranks.long()),
+                 "5 Mbp sa_intv 32 view": (f32, ranks)}
+    k4, k4_rows_of = {}, {}
+    for tag, (f, rk) in k4_shapes.items():
+        k4_rows_of[tag] = k4_rows(f, "random")
+        k4[tag], steps = k4_times(tag, f, which, rk, k4_rows_of[tag])
+    steps32 = steps  # the sa_intv-32 view's
+    occ = {(w, i): seed_batch.sa_occupancy(w, i) for w in (0, 1)
+           for i in (0, 1)}
+    say(f"[3] sa_walk resident warps an SM and walks in flight an SM "
+        f"(occupancy calculator): " + json.dumps(
+            {f"{'wide' if w else 'narrow'} {'intervals' if i else 'ranks'}":
+             v for (w, i), v in occ.items()}))
+    # the edge rows of torch_testdata.sa_rows on every layout, through both
+    # entries (the rank entry on each row's ranks)
+    n_edge = 0
+    for tag, (f, _rk) in k4_shapes.items():
+        for case in SA_ROW_CASES:
+            rows = k4_rows(f, case, n_rows=300)
+            row_of = torch.repeat_interleave(
+                torch.arange(rows[0].numel(), device=dev), rows[2].long())
+            within = (torch.arange(row_of.numel(), device=dev)
+                      - rows[3][row_of])
+            k4_check(f"{tag} edge rows {case}", f, rows[0][row_of],
+                     (rows[1].long()[row_of] + within).to(f.rdt), rows)
+            n_edge += 1
+    # skew: one walk of 31 steps among 2^20 sampled ranks (0 steps each) on
+    # the sa_intv-32 view; the long walk holds one slot, so the list takes
+    # about one walk's latency more than without it, not a warp's share
+    pick = torch.nonzero(steps32 == 31).flatten()
+    if pick.numel() == 0:
+        raise AssertionError("no 31-step walk among the random ranks")
+    sampled = T((32 * krng.integers(0, f32.seq_len // 32, n)).astype(np.int32))
+    skewed = sampled.clone()
+    at = int(krng.integers(0, n))
+    skewed[at] = ranks[pick[0]]
+    swhich = which.clone()
+    swhich[at] = which[pick[0]]
+    sk_steps = torch.zeros(n, dtype=torch.int64, device=dev)
+    compare("sa_walk skewed", seed_batch.sa_batch(f32, swhich, skewed),
+            seed_batch.sa_batch_plain(f32, swhich, skewed, sk_steps))
+    if int(sk_steps.sum()) != 31:
+        raise AssertionError(f"skewed list: {int(sk_steps.sum())} steps")
+    sk_out = torch.empty_like(skewed)
+    sk_ctr = torch.zeros(2, dtype=torch.int32, device=dev)
+    sk_ms = {name: cuda_ms(lambda: seed_batch._launch_sa(
+        f32, swhich, r, None, None, sk_out, sk_ctr), 20)
+        for name, r in (("sampled", sampled), ("skewed", skewed))}
+    props = torch.cuda.get_device_properties(dev)
+    grid_slots = {i: props.multi_processor_count * occ[0, i][1]
+                  for i in (0, 1)}
+    # job lists longer than the grid's walk slots, so that slots take jobs
+    # as others finish
+    n_long = 2 * max(grid_slots.values()) + 12345
+    long_rows = k4_rows(fm, "random", n_rows=n_long // 6)
+    k4_check("long lists", fm, T(krng.integers(0, 2, n_long).astype(np.int32)),
+             T(krng.integers(0, fm.seq_len + 1, n_long).astype(np.int32)),
+             long_rows)
+    if long_rows[4] <= max(grid_slots.values()):
+        raise AssertionError(f"{long_rows[4]} jobs, grid slots {grid_slots}")
+    say(f"[3] sa_walk skew, the launch alone on the sa_intv-32 view: 2^20 "
+        f"sampled ranks {sk_ms['sampled']:.4f} ms, the same with one 31-step "
+        f"walk among them {sk_ms['skewed']:.4f} ms; the grid's walk slots "
+        f"(SMs x blocks x threads x walks a thread) {grid_slots[0]} (ranks) "
+        f"/ {grid_slots[1]} (intervals), job lists of {n_long} ranks and "
+        f"{long_rows[4]} jobs equal; {n_edge} edge-row cases equal through "
+        f"both entries [{card}]")
+    k4_base = k4["5 Mbp sa_intv 4"]
+    row("sa_walk", "sa_walk.cu", "biscuit_tpu/ops/seed_batch.py:1983",
+        k4_err["sa_walk"], k4_base["wrapper"], k4_base["plain"],
+        f"the rank entry, 2^20 random ranks on the phase-4 index (sa_intv 4, "
+        f"{k4_base['steps']} steps): the wrapper {k4_base['wrapper']:.4f} ms, "
+        f"the launch alone {k4_base['alone']:.4f} ms; the one-sample floor "
+        f"{k4_base['floor']:.6f} ms; the engine calls it only for lanes the "
+        f"host seeded; + the wide twin, the sa_intv-32 view, {n_edge} edge-row "
+        f"cases, the skewed list and the long lists: equal",
+        k4_base["bytes"], 0, paths=())
+    # the engine's own call: the seeder's rows of the phase-4 reads, both
+    # strands, as _collect_seeds hands them to the interval entry
+    ea = sa_engine_inputs(idx, fq, dev)
+    e_steps = torch.zeros(ea[5], dtype=torch.int64, device=dev)
+    e_want = seed_batch.sa_batch_intervals_plain(*ea, steps=e_steps)
+    k4_err["sa_walk_intervals"] = max(k4_err["sa_walk_intervals"], compare(
+        "sa_walk_intervals, the engine's call", launched(
+            "sa_walk_intervals", lambda: seed_batch.sa_batch_intervals(*ea)),
+        e_want))
+    e_rows = (ea[1].int().contiguous(), ea[2].to(fm.rdt).contiguous(),
+              ea[3].int().contiguous(), ea[4].contiguous())
+    e_out = torch.empty(ea[5], dtype=fm.rdt, device=dev)
+    e_ctr = torch.zeros(2, dtype=torch.int32, device=dev)
+    e_alone = lambda: seed_batch._launch_sa(fm, *e_rows, e_out, e_ctr)
+    e_alone()
+    compare("sa_walk_intervals, the engine's call, the launch alone", e_out,
+            e_want)
+    e_ms = cuda_ms(lambda: seed_batch.sa_batch_intervals(*ea), 20)
+    e_alone_ms = cuda_ms(e_alone, 20)
+    _w, e_bytes, _f = k4_bounds(fm, e_steps[:0], e_steps, e_rows)
+    row("sa_walk_intervals", "sa_walk.cu", "biscuit_tpu/ops/seed_batch.py:1983",
+        k4_err["sa_walk_intervals"], e_ms, cuda_ms(
+            lambda: seed_batch.sa_batch_intervals_plain(*ea), 2),
+        f"the interval entry at the engine's call on phase 4's reads, both "
+        f"strands: {ea[1].numel()} seed rows, {ea[5]} jobs, "
+        f"{int(e_steps.sum())} steps: the wrapper {e_ms:.4f} ms, the launch "
+        f"alone {e_alone_ms:.4f} ms; 2^20 jobs at sa_intv 4 / 16 / 32: the "
+        f"launch alone " + " / ".join(f"{k4[t]['i_alone']:.4f}" for t in k4)
+        + " ms; + the edge rows, skew and long lists above: equal",
+        e_bytes, 0, paths=("4", "4b"))
     # the port's scalar walk agrees on a sample
     from biscuit_tpu_torch.ops.fm import FMNumpy
     fms = {0: FMNumpy(idx.dau), 1: FMNumpy(idx.par)}
-    got = ks()[:2000].tolist()
+    got = seed_batch.sa_batch(fm, which, ranks)[:2000].tolist()
     for wh, r, g in zip(which[:2000].tolist(), ranks[:2000].tolist(), got):
         if g != fms[wh].sa_s(r):
             raise AssertionError(f"sa_walk rank {r}: {g} != {fms[wh].sa_s(r)}")
@@ -1140,13 +1437,12 @@ def smoke(work: str) -> int:
         f"(the launch alone {big_alone:.4f} ms), "
         f"plain {cuda_ms(pb, 1, warm=False):.4f} ms for {BIG_CHECK} lanes, equal on "
         f"{BIG_CHECK} [{card}]")
+    # K4 on the 50 Mbp tables at sa_intv 4 and on their sa_intv-32 view
     rb = T(rng.integers(0, fmb.seq_len + 1, n).astype(np.int32))
-    kw = lambda: seed_batch.sa_batch(fmb, which, rb)
-    pw = lambda: seed_batch.sa_batch_plain(fmb, which[:1 << 16], rb[:1 << 16])
-    compare("sa_walk 50 Mbp", kw()[:1 << 16], pw())
-    say(f"[3] sa_walk 50 Mbp: kernel {cuda_ms(kw, 10):.4f} ms for 2^20 ranks, "
-        f"plain {cuda_ms(pw, 1):.4f} ms for 2^16, equal on 2^16 [{card}]")
-    del fmb, bidx
+    for tag, f in (("50 Mbp sa_intv 4", fmb),
+                   ("50 Mbp sa_intv 32 view", sa_intv_view(fmb, 32))):
+        k4[tag] = k4_times(tag, f, which, rb, k4_rows(f, "random"))[0]
+    del fmb, bidx, f
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1569,13 +1865,18 @@ def smoke(work: str) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     with open(gsam, "w") as f, contextlib.redirect_stdout(f):
         rc = cli.main(["align", gfa, gfq])
     torch.cuda.synchronize()
     t_align = time.perf_counter() - t0
+    alaunch = dict(kernels.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"align exited {rc}")
+    if alaunch.get("sa_walk_intervals", 0) < 1:
+        raise AssertionError(f"phase 6's align launched {alaunch}")
+    say(f"[6] align launches: {json.dumps(alaunch)}")
     t0 = time.perf_counter()
     if cli.main(["sort", "-o", gbam, gsam]) != 0:
         raise AssertionError("sort failed")

@@ -567,3 +567,99 @@ def chain_planes(lanes, rdt):
             for c in range(6):
                 planes[c][j, b] = rec[c]
     return planes, n_occ
+
+
+# ---------------------------------------------------------------------------
+# K4, the SA walk: seed-interval rows in the layout of its interval entry
+# ---------------------------------------------------------------------------
+
+SA_ROW_CASES = ("random", "edge", "empty", "one_row_64", "sampled")
+
+
+def sa_intv_view(fm, sa_intv):
+    """The same FM tables with the SA samples stride-subsampled to every
+    sa_intv-th rank (sa_intv a multiple of fm's): no index build, and the
+    walks of an index sampled that sparsely (the reference format's 32)."""
+    from biscuit_tpu_torch.ops.seed_batch import FMPair
+    step = sa_intv // fm.sa_intv
+    return FMPair.from_numpy(
+        fm.tab.cpu().numpy().view("uint32"), fm.L2.cpu().numpy(),
+        fm.primary.cpu().numpy(), fm.seq_len,
+        fm.sa_samples.cpu().numpy()[:, ::step], fm.wide, sa_intv,
+        fm.tab.device)
+
+
+def sa_rows(case, seq_len, primary, sa_intv, cap=64, n=300, seed=0):
+    """Rows (which, x0, kmax) of one case as int64 numpy arrays, every
+    rank in [0, seq_len]: "random" (n rows, kmax mostly 1, some up to
+    cap, a few 0), "edge" (kmax 0; cap ranks of a seed with more
+    occurrences; rows that start at, end at and run across either strand's
+    primary row; the last rank seq_len; rank 0, whose sample is the -1
+    sentinel; ranks already sampled, 0 steps), "empty", "one_row_64" (one
+    row of 64 ranks) and "sampled" (n rows of one sampled rank)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows = []
+    if case == "random":
+        kmax = rng.choice([0, 1, 1, 1, 1, 1, 2, 3, 7, cap], n)
+        for w, k in zip(rng.integers(0, 2, n), kmax):
+            rows.append((w, int(rng.integers(0, seq_len + 2 - k)), k))
+    elif case == "edge":
+        for w in (0, 1):
+            p = int(primary[w])
+            rows += [(w, 5, 0), (w, p, 3), (w, p - 2, 3), (w, p - 1, 1),
+                     (w, seq_len, 1), (w, seq_len - 2, 3), (w, 0, 1),
+                     (w, 0, 2), (w, sa_intv, 1),
+                     (w, int(rng.integers(0, seq_len - cap)), cap),
+                     (w, 7 * sa_intv, 0), (w, 3 * sa_intv, sa_intv + 1)]
+    elif case == "one_row_64":
+        rows.append((1, int(rng.integers(0, seq_len - 64)), 64))
+    elif case == "sampled":
+        for w in rng.integers(0, 2, n):
+            rows.append((w, sa_intv * int(rng.integers(0, seq_len // sa_intv)),
+                         1))
+    elif case != "empty":
+        raise ValueError(case)
+    which, x0, kmax = (np.asarray([r[c] for r in rows], np.int64)
+                       for c in range(3))
+    return which, x0, kmax
+
+
+def sa_rows_expanded(which, x0, kmax):
+    """Each row's ranks, as the per-occurrence packing expands them:
+    (strand, rank) of every job in row order, int64 numpy."""
+    import numpy as np
+    within = np.arange(int(kmax.sum())) - np.repeat(np.cumsum(kmax) - kmax,
+                                                    kmax)
+    return np.repeat(which, kmax), np.repeat(x0, kmax) + within
+
+
+def repeat_dataset(d, unit_len=150, copies=80, flank=20000, n_reads=40,
+                   read_len=100, seed=4):
+    """A genome of one chromosome, random flanks around `copies` exact
+    copies of a random unit, and directional reads (every C read as T)
+    drawn half from the repeat and half from the flanks: seeds of the
+    repeat have about `copies` occurrences, more than SA_PREFETCH_CAP.
+    Writes genome.fa (indexed) and reads.fq into d; returns (fasta, reads,
+    the port's BisIndex)."""
+    import numpy as np
+    from biscuit_tpu_torch.index.build import build_index
+    rng = np.random.default_rng(seed)
+    acgt = np.array(list("ACGT"))
+    unit = "".join(acgt[rng.integers(0, 4, unit_len)])
+    left, right = ("".join(acgt[rng.integers(0, 4, flank)]) for _ in "lr")
+    genome = left + unit * copies + right
+    os.makedirs(str(d), exist_ok=True)
+    fa, fq = os.path.join(str(d), "genome.fa"), os.path.join(str(d), "reads.fq")
+    with open(fa, "w") as f:
+        f.write(">chrR\n")
+        for i in range(0, len(genome), 60):
+            f.write(genome[i:i + 60] + "\n")
+    with open(fq, "w") as f:
+        for i in range(n_reads):
+            lo, hi = ((flank, flank + unit_len * copies - read_len) if i % 2
+                      else (0, flank - read_len))
+            b = int(rng.integers(lo, hi))
+            read = genome[b:b + read_len].replace("C", "T")
+            f.write(f"@r{i}\n{read}\n+\n{'I' * read_len}\n")
+    return fa, fq, build_index(fa, prefix=fa)
