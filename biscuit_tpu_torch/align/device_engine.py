@@ -1,19 +1,30 @@
-"""Device alignment engine (torch): SE and PE reads through the device kernels.
+"""Device alignment engines (torch): SE and PE reads through the device kernels.
 
-Port of DeviceAligner / prefill_setSAM / process_seqs_device of
-biscuit_tpu/align/device_engine.py. The host logic (chaining, region
-bookkeeping, SAM) is the same code, driven through the extension-request
+Two engines, ports of biscuit_tpu/align/device_engine.py:
+
+- the hybrid engine (DeviceSeeder, process_seqs_hybrid; the CLI's
+  `device`, its default): seeding (K3) and the SA walk of the first SA_CAP
+  occurrences of every seed (K4's interval entry) on the device, injected
+  into the native engine (align/native_engine.py, C++ threads), which
+  chains, extends and writes SAM; a chunk the native engine's fused
+  entries cannot take (-V, barcodes or UMIs, reads over its length gate)
+  runs through the device engine;
+- the device engine (DeviceAligner, prefill_setSAM, process_seqs_device;
+  the CLI's `device-jax`), described below.
+
+In the device engine the host logic (chaining, region bookkeeping, SAM) is
+the host engine's code, driven through the extension-request
 generator protocol (region.chain2region_gen). Output is identical to the
 host engine and to the JAX device engine (tests/test_torch_engine.py).
 
-Batch flow per call:
+Device engine, batch flow per call:
   1. host: read clipping + in-silico conversion; (read, parent) lanes
   2. device: 3-pass SMEM seed collection (ops/seed_batch.collect_intv_flat,
      K3 with K5); lanes over its S-row capacity rerun smem.collect_intv
   3. device: batched SA walks for the first SA_PREFETCH_CAP occurrences of
-     every seed: the seeder's rows, as they lie on the card, through K4's
-     interval entry (ops/seed_batch.sa_batch_intervals); the rows of lanes
-     the host seeded through its rank entry (sa_batch)
+     every seed: the seeder's rows, as they lie on the card, and after them
+     the rows of the lanes the host seeded, through one call of K4's
+     interval entry (ops/seed_batch.sa_batch_intervals)
   4. device: the chain B-tree scan (chain.mem_chain_batch over
      ops/chain_batch.chain_scan_batch, K6); lanes over its caps, and every
      lane at -v4, run the host chain.mem_chain. Then host chain filtering
@@ -34,20 +45,24 @@ plain torch versions. The three DP kernels (K1, K7, K2) take a query of
 any width the engine meets: past the widest compiled strip they run their
 wide instance, on the card like the others.
 """
+import contextlib
 import copy
+import ctypes
+import math
 import os
+import threading
 import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE
+from ..config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_REF_HDR
 from ..ops import sw
 from ..align.io_helpers import read_clipping
 
-from ..ops.seed_batch import (FMPair, collect_intv_batch, sa_batch,
-                              sa_batch_intervals)
+from ..ops.seed_batch import (FMPair, collect_intv_batch, collect_intv_flat,
+                              sa_batch_intervals, seed_lane_bytes)
 from ..ops.sw_extend import sw_extend_batch
 from ..ops.sw_global import decode_cigars, sw_global_cigar
 from ..ops.sw_local import sw_align_batch
@@ -70,14 +85,20 @@ _STAGE_T: Dict[str, float] = {}
 # rescue_lanes: the lanes sent to K7, forward and reverse passes together.
 # cigar_late_lanes: global alignments that worker2 asked for and the CIGAR
 # prefill had not computed, run then through K2 on the device.
-# sa_rows, sa_jobs: seed rows and occurrences sent to K4's interval entry;
-# sa_overflow_jobs: occurrences of host-seeded lanes sent to its rank entry.
+# sa_rows, sa_jobs: the seeder's rows and their occurrences sent to K4's
+# interval entry; sa_overflow_jobs: occurrences of host-seeded lanes sent to
+# it in the same call.
 _COUNTS = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
            "traceback_overflow_lanes": 0, "rescue_lanes": 0,
            "cigar_late_lanes": 0, "sa_rows": 0, "sa_jobs": 0,
            "sa_overflow_jobs": 0}
 # stages whose work runs on the device, as the JAX engine counts them
-_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue")
+_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue",
+                  "inject")
+
+
+# guards the two tables above where the hybrid's injector thread adds to them
+_LOCK = threading.Lock()
 
 
 class _stage:
@@ -88,8 +109,9 @@ class _stage:
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        _STAGE_T[self.name] = (_STAGE_T.get(self.name, 0.0)
-                               + time.perf_counter() - self.t0)
+        dt = time.perf_counter() - self.t0
+        with _LOCK:
+            _STAGE_T[self.name] = _STAGE_T.get(self.name, 0.0) + dt
 
 
 def stage_report() -> Dict[str, float]:
@@ -143,10 +165,12 @@ def _sa_lookup(pos, off, kmax, r0, fm):
 
 
 class DeviceAligner:
-    def __init__(self, st: AlignerState, device):
+    def __init__(self, st: AlignerState, device, fmpair: FMPair = None):
+        """`fmpair`: the index's tables already on `device` (the hybrid
+        engine's seeder shares its own), else built here."""
         self.st = st
         self.device = torch.device(device)
-        self.fmpair = FMPair.from_index(st.idx, self.device)
+        self.fmpair = fmpair or FMPair.from_index(st.idx, self.device)
         self._mats_cache = None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -189,45 +213,37 @@ class DeviceAligner:
             _COUNTS["seed_overflow_lanes"] += int(overflow.sum())
 
         with _stage("sa"):
-            # the first SA_PREFETCH_CAP occurrences of every seed. The
-            # seeder's rows go to K4's interval entry as they lie on the
-            # card, in one call; the rows of host-seeded lanes go to its rank
-            # entry, expanded here, in another
+            # the first SA_PREFETCH_CAP occurrences of every seed, in one call
+            # of K4's interval entry: the seeder's rows as they lie on the
+            # card, then the rows of the lanes the host seeded, each lane's
+            # rows in order; one offset table serves both
             sizes = np.fromiter((r[4] for i, lane in enumerate(seeds)
                                  if not overflow[i] for r in lane), np.int64)
-            kmax = np.minimum(sizes, SA_PREFETCH_CAP)
-            off = np.cumsum(kmax) - kmax
-            kmax_row = rows[:, 4].clamp(max=SA_PREFETCH_CAP).long()
-            pos = sa_batch_intervals(
-                fmp, parents.index_select(0, lane_of), rows[:, 2], kmax_row,
-                torch.cumsum(kmax_row, 0) - kmax_row, int(kmax.sum()))
             ov = [(lanes[i][1], r[2], min(r[4], SA_PREFETCH_CAP))
                   for i in np.nonzero(overflow)[0] for r in seeds[i]]
             ov_which, ov_x0, ov_kmax = (np.asarray([r[c] for r in ov], np.int64)
                                         for c in range(3))
-            ov_off = np.cumsum(ov_kmax) - ov_kmax
-            n_ov = int(ov_kmax.sum())
-            pos_ov = np.zeros(0, np.int64)
-            if n_ov:
-                rdt = np.int64 if fmp.wide else np.int32
-                ranks = (np.repeat(ov_x0 - ov_off, ov_kmax)
-                         + np.arange(n_ov)).astype(rdt)
-                pos_ov = sa_batch(fmp, self._tensor(np.repeat(
-                    ov_which, ov_kmax).astype(np.int32)),
-                    self._tensor(ranks)).cpu().numpy()
+            kmax = np.concatenate([np.minimum(sizes, SA_PREFETCH_CAP), ov_kmax])
+            off = np.cumsum(kmax) - kmax
+            kmax_row = torch.cat([rows[:, 4].clamp(max=SA_PREFETCH_CAP).long(),
+                                  self._tensor(ov_kmax)])
+            pos = sa_batch_intervals(
+                fmp, torch.cat([parents.index_select(0, lane_of).long(),
+                                self._tensor(ov_which)]),
+                torch.cat([rows[:, 2].long(), self._tensor(ov_x0)]), kmax_row,
+                torch.cumsum(kmax_row, 0) - kmax_row, int(kmax.sum()))
             pos = pos.cpu().numpy()
-            _COUNTS["sa_rows"] += int(kmax.size)
-            _COUNTS["sa_jobs"] += int(kmax.sum())
+            n_ov = int(ov_kmax.sum())
+            _COUNTS["sa_rows"] += int(sizes.size)
+            _COUNTS["sa_jobs"] += int(kmax.sum()) - n_ov
             _COUNTS["sa_overflow_jobs"] += n_ov
 
         lookups = []
-        kmax, off, ov_kmax, ov_off = (a.tolist() for a in (kmax, off, ov_kmax,
-                                                           ov_off))
-        r_dev = r_ov = 0
+        kmax, off = kmax.tolist(), off.tolist()
+        r_dev, r_ov = 0, int(sizes.size)
         for i, ((_s, p), lane_seeds) in enumerate(zip(lanes, seeds)):
             if overflow[i]:
-                lookups.append(_sa_lookup(pos_ov, ov_off, ov_kmax, r_ov,
-                                          st.fm[p]))
+                lookups.append(_sa_lookup(pos, off, kmax, r_ov, st.fm[p]))
                 r_ov += len(lane_seeds)
             else:
                 lookups.append(_sa_lookup(pos, off, kmax, r_dev, st.fm[p]))
@@ -589,3 +605,272 @@ def _prefill(opt: MemOpt, st: AlignerState, engine: DeviceAligner, seqs,
     for i, s in enumerate(seqs):
         items.extend(_setSAM_candidates(opt, s, all_regs[i]))
     return cigar_fn(opt, engine, prefill_setSAM(opt, st.idx, engine, items))
+
+
+# ---------------------------------------------------------------------------
+# The hybrid engine: seeds and SA positions from the device, injected into
+# the native (C++) engine's chaining, extension and SAM
+# ---------------------------------------------------------------------------
+
+class DeviceSeeder:
+    """Seed provider of the hybrid engine (port of the JAX package's
+    DeviceSeeder, biscuit_tpu/align/device_engine.py).
+
+    For every lane (read, strand) of a batch, mem_collect_intv runs on the
+    device (K3, ops/seed_batch.collect_intv_flat), and K4's interval entry
+    (ops/seed_batch.sa_batch_intervals) resolves the first SA_CAP
+    occurrences of every seed on the seeder's rows as they lie there. Rows
+    and positions come back to the host once each, as the zero-copy seed
+    injection (native_engine.SeedInjC) that the C++ batch entries read:
+    per lane key read * 2 + strand a flag and a row range, per row
+    (start, end) and (x0, x1, size), per row an offset into the positions.
+
+    A lane keeps has = 0 and seeds itself in C++ only where K3 flags it,
+    more than S = SEED_CAP rows (the capacity contract, counted in
+    seed_overflow_lanes); -e (MEM_F_SELF_OVLP) is injected like any other
+    option, since the device seeder takes its start width. The output is
+    the native engine's with or without the injection.
+
+    On CUDA all of the seeder's device work runs on a stream of its own,
+    `self.stream`, so that it may run in a thread of its own beside any work
+    of the default stream."""
+
+    # occurrences a seed resolved on the device; the C++ engine walks the
+    # rest. With an injection the C++ engine skips its own pre-resolution
+    # of the first 8 occurrences of every seed (align_host.cpp,
+    # chain_from_seeds), so at 0 every occurrence walks in C++. 8, what the
+    # C++ engine resolves up front itself: in the SA_CAP sweeps of
+    # chip_smoke.py on an H100 (PERF.md) 64 did not beat it beyond the
+    # runs' spread, on a genome with repeats neither
+    SA_CAP = 8
+    # device memory one seeder call may take (seed_lane_bytes a lane)
+    SWEEP_BYTES = 1 << 30
+
+    def __init__(self, st: AlignerState, device):
+        self.st = st
+        self.device = torch.device(device)
+        self.fmpair = FMPair.from_index(st.idx, self.device)
+        self._aligner = None
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # the tables were copied on the default stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def lane_keys(self, opt: MemOpt, n: int, pe: bool):
+        """Lane keys (read*2+parent) matching the C++ batch lane policy
+        (bwamem.c:311-375; align_host.cpp bt_align_*_batch)."""
+        pp = opt.parent
+        keys = []
+        for i in range(n):
+            if not pe:
+                if not (pp & 1) or (pp >> 1):
+                    keys.append(i * 2)
+                if not (pp & 1) or not (pp >> 1):
+                    keys.append(i * 2 + 1)
+            else:
+                first = 1 if i % 2 == 0 else 0
+                keys.append(i * 2 + first)
+                if not pp:
+                    keys.append(i * 2 + (1 - first))
+        return np.asarray(keys, np.int64)
+
+    def aligner(self) -> DeviceAligner:
+        """The device engine on the seeder's device and tables, for the
+        batches the native engine's fused entries cannot take (fused)."""
+        if self._aligner is None:
+            self._aligner = DeviceAligner(self.st, self.device, self.fmpair)
+        return self._aligner
+
+    def sweep_lanes(self, L: int) -> int:
+        """Lanes of read length L that one seeder call takes."""
+        return max(1, self.SWEEP_BYTES // seed_lane_bytes(
+            L, self.fmpair.wide, self.device))
+
+    def build_injection(self, opt: MemOpt, seqs, pe: bool):
+        """(SeedInjC, keepalive) for clipped reads `seqs`, or None for no
+        reads. keepalive starts with the host arrays the C++ engine reads,
+        (has, lane_off, rows_se, rows_xs, sa_off, sa_pos), and must outlive
+        its call."""
+        if not seqs:
+            return None
+        stream = (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext())
+        with _stage("inject"), stream:
+            return self._inject(opt, seqs, pe)
+
+    def _host(self, *tensors):
+        """Copies of `tensors` on the host, complete on return: on CUDA
+        into pinned buffers of their own, on the seeder's stream, waited
+        for before the C++ engine reads them."""
+        if self.stream is None:
+            return tensors
+        out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    .copy_(t, non_blocking=True) for t in tensors)
+        self.stream.synchronize()
+        return out
+
+    def _inject(self, opt: MemOpt, seqs, pe: bool):
+        from .native_engine import SeedInjC, _ptr
+        fmp, dev = self.fmpair, self.device
+        n = len(seqs)
+        keys = self.lane_keys(opt, n, pe)
+        B = len(keys)
+        # the reads, padded with 4, go to the device once; each lane is
+        # converted there as pipeline.bsconvert converts it (parent strand
+        # C>T: 1 -> 3, daughter G>A: 2 -> 0)
+        lens = np.fromiter((s.l_seq for s in seqs), np.int64, n)
+        L = max(int(lens.max()), 1)
+        reads = np.full((n, L), 4, np.uint8)
+        reads[np.repeat(np.arange(n), lens),
+              np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                     lens)] = \
+            np.concatenate([s.seq for s in seqs])
+        T = lambda a: torch.from_numpy(a).to(dev)
+        reads, lens, key = T(reads), T(lens).int(), T(keys)
+        step = self.sweep_lanes(L)
+        lane_parts, row_parts, ov_parts = [], [], []
+        for lo in range(0, B, step):
+            k = key[lo:lo + step]
+            q = reads[k >> 1].int()
+            par = (k & 1).bool()[:, None]
+            q = torch.where(par & (q == 1), 3, torch.where(~par & (q == 2), 0, q))
+            lane_of, rows, ov = collect_intv_flat(fmp, q, lens[k >> 1],
+                                                  (k & 1).int(), opt)
+            lane_parts.append(lane_of.long() + lo)
+            row_parts.append(rows)
+            ov_parts.append(ov)
+        # rows grouped by lane key, each lane's in the seeder's order: an
+        # even PE read seeds its parent strand (key + 1) first
+        key_row, order = torch.sort(key[torch.cat(lane_parts)], stable=True)
+        rows = torch.cat(row_parts)[order]
+        M = rows.shape[0]
+        lane_off = torch.zeros(2 * n + 1, dtype=torch.int64, device=dev)
+        lane_off[1:] = torch.bincount(key_row, minlength=2 * n).cumsum(0)
+        has = torch.zeros(2 * n, dtype=torch.uint8, device=dev)
+        has[key[~torch.cat(ov_parts)]] = 1
+        # sa_off, the exclusive prefix sum of each row's min(size, SA_CAP),
+        # gives both K4's offsets and its total
+        kmax = rows[:, 4].long().clamp(max=self.SA_CAP)
+        sa_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+        sa_off[1:] = kmax.cumsum(0)
+        h_has, h_lane_off, h_se, h_xs, h_sa_off = self._host(
+            has, lane_off, rows[:, :2].int().contiguous(),
+            rows[:, 2:].long().contiguous(), sa_off)
+        total = int(h_sa_off[-1])
+        if total:
+            h_pos, = self._host(sa_batch_intervals(
+                fmp, key_row & 1, rows[:, 2], kmax, sa_off[:-1], total).long())
+            sa_pos = h_pos.numpy()
+        else:
+            sa_pos = np.zeros(1, np.int64)
+        has_np, lane_off_np, sa_off_np = (t.numpy() for t in (h_has, h_lane_off,
+                                                              h_sa_off))
+        rows_se = h_se.numpy() if M else np.zeros((1, 2), np.int32)
+        rows_xs = h_xs.numpy() if M else np.zeros((1, 3), np.int64)
+        with _LOCK:
+            _COUNTS["seed_overflow_lanes"] += B - int(has_np.sum())
+            _COUNTS["sa_rows"] += M
+            _COUNTS["sa_jobs"] += total
+        inj = SeedInjC()
+        arrays = (has_np, lane_off_np, rows_se, rows_xs, sa_off_np, sa_pos)
+        (inj.has, inj.lane_off, inj.rows_se, inj.rows_xs, inj.sa_off,
+         inj.sa_pos) = (ctypes.cast(_ptr(a), ctypes.c_void_p) for a in arrays)
+        return inj, arrays + (h_has, h_lane_off, h_se, h_xs, h_sa_off)
+
+
+def fused(opt: MemOpt, seqs) -> bool:
+    """Whether the native engine's fused batch entries (align_host.cpp
+    bt_align_se_batch / bt_align_pe_batch) align every read of `seqs` with
+    an injection. They do not under -V (MEM_F_REF_HDR: the region path,
+    whose C++ worker1 takes no injection), nor a read with a barcode or a
+    UMI, nor one at the mem_flt_chained_seeds gate of align1_core (about
+    725 bases at the defaults, fewer under -W), which they hand to Python
+    to seed again on the host; in PE one such read sends the whole chunk
+    there. Judged before clipping, which only shortens a read: a read that
+    clipping would bring under the gate still counts as over it."""
+    if opt.flag & MEM_F_REF_HDR:
+        return False
+    for s in seqs:
+        if s.barcode or s.umi:
+            return False
+        n = s.l_seq
+        if n >= opt.min_seed_len and not (
+                (1.1 * opt.min_chain_weight if opt.min_chain_weight
+                 else 5.5 * math.log(n)) > 0.05 * n):
+            return False
+    return True
+
+
+def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
+                        pes0=None, rg_id: str = "", engine=None,
+                        seeder: DeviceSeeder = None, device=None) -> None:
+    """mem_process_seqs of the hybrid engine: the device seeds
+    (DeviceSeeder) and the native engine (native_engine.process_seqs_native)
+    chains, extends and writes SAM. Pass a `seeder` or the `device` to
+    build one on.
+
+    SE chunks of more than DEVICE_BATCH reads are pipelined: an injector
+    thread clips sub-batch k+1 and builds its injection while the C++
+    engine aligns sub-batch k (ctypes releases the GIL for the call), so
+    up to three injections are alive at once, each in buffers of its own.
+    Sub-batches pass their n_processed offsets through, and SE reads are
+    independent, so the SAM is the serial run's. PE keeps the whole chunk
+    (insert-size statistics span it, bwamem.c:464-467).
+    BISCUIT_TPU_HYBRID_PIPELINE=0 runs serially. Stages: `inject` (the
+    seeder, in whichever thread builds the injection) and `native` (the
+    native engine); their sum over the wall shows the overlap.
+
+    A chunk the fused C++ entries cannot take whole (fused) runs through
+    the device engine (process_seqs_device) on the seeder's device and
+    tables instead: there the C++ engine would seed on the host and drop
+    the card's rows. The SAM is the same either way."""
+    import queue
+    from .native_engine import NativeAligner, process_seqs_native
+    nat = engine if isinstance(engine, NativeAligner) else NativeAligner(st)
+    if seeder is None:
+        if device is None:
+            raise ValueError("process_seqs_hybrid needs a seeder or a device")
+        seeder = DeviceSeeder(st, device)
+    pe = bool(opt.flag & MEM_F_PE)
+    if not fused(opt, seqs):
+        process_seqs_device(opt, st, seqs, n_processed, pes0, rg_id,
+                            engine=seeder.aligner())
+        return
+
+    def native(sub, lo, inj):
+        with _stage("native"):
+            process_seqs_native(opt, st, sub, n_processed + lo, pes0, rg_id,
+                                engine=nat, inj_pre=inj, pre_clipped=True)
+
+    if pe or len(seqs) <= DEVICE_BATCH or \
+            os.environ.get("BISCUIT_TPU_HYBRID_PIPELINE", "1") == "0":
+        for s in seqs:
+            read_clipping(s, opt.adaptor1 if (not pe or s.id % 2 == 0)
+                          else opt.adaptor2, opt)
+        native(seqs, 0, seeder.build_injection(opt, seqs, pe))
+        return
+    subs = [seqs[lo:lo + DEVICE_BATCH]
+            for lo in range(0, len(seqs), DEVICE_BATCH)]
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+
+    def _injector():
+        try:
+            for sub in subs:
+                for s in sub:
+                    read_clipping(s, opt.adaptor1, opt)
+                q.put((sub, seeder.build_injection(opt, sub, False)))
+        except BaseException as e:  # surface in the consumer
+            q.put(e)
+
+    th = threading.Thread(target=_injector, daemon=True)
+    th.start()
+    lo = 0
+    for _ in subs:
+        item = q.get()
+        if isinstance(item, BaseException):
+            raise item
+        sub, inj = item
+        native(sub, lo, inj)
+        lo += len(sub)
+    th.join()

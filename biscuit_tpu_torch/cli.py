@@ -2,11 +2,12 @@
 
 The counterparts of biscuit_tpu.cli's `index`, `align`, `sort`, `bamindex`
 and `pileup`, with the same options and the same output. `align` runs SE
-and PE reads through the torch device engine
-(align/device_engine.process_seqs_device) and `pileup` makes the count
-matrices of every window (ops/pileup_count.py) on the device named by
-BISCUIT_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs the plain torch
-versions of the kernels). SAM and VCF go to stdout unless `-o` names a
+and PE reads through the engine named by BISCUIT_TPU_TORCH_ENGINE (default
+`device`, the hybrid engine: seeds from the device into the native C++
+engine; `device-jax`, `native` and `host` when named; see ENGINES) and
+`pileup` makes the count matrices of every window (ops/pileup_count.py) on
+the device named by BISCUIT_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs
+the plain torch versions of the kernels). SAM and VCF go to stdout unless `-o` names a
 file. Any other subcommand of biscuit_tpu is answered with "not ported
 yet" and exit code 1.
 
@@ -60,6 +61,17 @@ def main_index(argv):
     return 0
 
 
+# align's engines, picked by BISCUIT_TPU_TORCH_ENGINE (default `device`):
+# device      the hybrid engine: seeds (K3) and SA positions (K4) from the
+#             device, chaining, extension and SAM in the native C++ engine
+# device-jax  the device engine: every worker1 stage on the device, driven
+#             by the host engine's Python (the JAX package's device-jax)
+# native      the native C++ engine alone, on the host
+# host        the host engine, Python (also what -v 4 and above run)
+ENGINE_ENV = "BISCUIT_TPU_TORCH_ENGINE"
+ENGINES = ("device", "device-jax", "native", "host")
+
+
 def main_align(argv):
     from .config import (
         MemOpt, MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
@@ -71,7 +83,9 @@ def main_align(argv):
     from .io.fastq import fastq_iter, read_batch, make_bseq
     from .align.pair import PeStat
     from .align.pipeline import AlignerState, process_seqs, sam_header
-    from .align.device_engine import DeviceAligner, process_seqs_device
+    from .align.device_engine import (DeviceAligner, DeviceSeeder,
+                                      process_seqs_device, process_seqs_hybrid)
+    from .align.native_engine import NativeAligner, process_seqs_native
     from .device import resolve
 
     opt = MemOpt()
@@ -311,7 +325,17 @@ Input/output options:
     from .align import trace
     trace.set_verbose(verbose)
 
-    device = resolve()
+    engine = os.environ.get(ENGINE_ENV, "device")
+    if engine not in ENGINES:
+        print(f"[E::main_align] unknown engine '{engine}' in {ENGINE_ENV} "
+              f"(one of {', '.join(ENGINES)})", file=sys.stderr)
+        return 1
+    if verbose >= 4:
+        # debug traces are only wired through the host engine, and ordered
+        # output needs a single in-process worker
+        engine = "host"
+        opt.n_threads = 1
+    device = resolve() if engine in ("device", "device-jax") else None
 
     idx = BisIndex.load(args[0])
     if verbose >= 3:
@@ -333,20 +357,26 @@ Input/output options:
     if not no_hdr:
         out.write(sam_header(idx, hdr_line, pg))
 
-    # debug traces are only wired through the host engine, and ordered
-    # output needs a single in-process worker
-    dev = None
-    if verbose >= 4:
-        opt.n_threads = 1
-    else:
+    dev = nat = sdr = None
+    if engine == "device":
+        nat, sdr = NativeAligner(st), DeviceSeeder(st, device)
+    elif engine == "device-jax":
         dev = DeviceAligner(st, device)
+    elif engine == "native":
+        nat = NativeAligner(st)
 
     def run_batch(seqs, n_processed):
         import time as _time
         ct0, rt0 = _time.process_time(), _time.perf_counter()
-        if dev is not None:
+        if engine == "device":
+            process_seqs_hybrid(opt, st, seqs, n_processed, pes0, rg_id,
+                                engine=nat, seeder=sdr)
+        elif engine == "device-jax":
             process_seqs_device(opt, st, seqs, n_processed, pes0, rg_id,
                                 engine=dev)
+        elif engine == "native":
+            process_seqs_native(opt, st, seqs, n_processed, pes0, rg_id,
+                                engine=nat)
         else:
             process_seqs(opt, st, seqs, n_processed, pes0, rg_id)
         if verbose >= 3:

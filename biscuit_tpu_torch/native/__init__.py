@@ -1,14 +1,17 @@
-"""ctypes loader for the port's native (C++) index construction code.
+"""ctypes loader for the port's native (C++) components.
 
 Compiles lazily with g++ on first use; the shared object is cached in
 `_build/` next to the sources and rebuilt when a source is newer. This is
-host C++ (suffix array, BWT), not a device kernel.
+host C++, not a device kernel: the suffix array and BWT of index
+construction (sais.cpp, bwt_merge.cpp) and the native align engine
+(align_host.cpp: seeding, chaining, extension and SAM for a batch of
+reads on C++ threads, with the seed injection of the hybrid engine).
 
-Copy of biscuit_tpu/native/__init__.py for the two sources that
-index/build.py calls, sais.cpp (suffix_array, bwt_from_sa) and bwt_merge.cpp
-(bwt_merge): `_declare` holds only their functions, and the PGO
-and sanitizer builds of the source are left out. The rest is the source's
-code; tests/test_torch_engine.py holds the copy to it.
+Copy of biscuit_tpu/native/__init__.py for those three sources:
+`_declare` holds their functions (the source's table up to the end of its
+align_host.cpp block), and the PGO and sanitizer builds of the source are
+left out. The rest is the source's code; tests/test_torch_engine.py holds
+the copy to it.
 """
 import ctypes
 import os
@@ -23,30 +26,40 @@ _SOURCES = [os.path.join(_DIR, f) for f in sorted(os.listdir(_DIR)) if f.endswit
 _lib = None
 
 
+def _stale() -> bool:
+    return not os.path.exists(_SO) or any(
+        os.path.getmtime(src) > os.path.getmtime(_SO)
+        for src in _SOURCES + [os.path.join(_DIR, "__init__.py")])
+
+
 def _build() -> None:
+    import fcntl
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    # built under a process-private name and renamed: a concurrent process
-    # never loads a torn file
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    base = ["g++", "-O3", "-funroll-loops", "-std=c++17", "-shared", "-fPIC",
-            "-o", tmp]
-    tail = _SOURCES + ["-lpthread"]
-    # -march=native where the compiler takes it, else the portable build
-    r = subprocess.run(base[:2] + ["-march=native"] + base[2:] + tail,
-                       capture_output=True)
-    if r.returncode != 0:
-        subprocess.run(base + tail, check=True)
-    os.replace(tmp, _SO)
+    # one build at a time: processes that start together (test workers)
+    # wait for the first one's library instead of compiling it again
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale():
+            return
+        # built under a process-private name and renamed: a concurrent
+        # process never loads a torn file
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        # c++20: the interleaved SMEM seeder (align_host.cpp) uses coroutines
+        base = ["g++", "-O3", "-funroll-loops", "-std=c++20", "-shared",
+                "-fPIC", "-o", tmp]
+        tail = _SOURCES + ["-lpthread"]
+        # -march=native where the compiler takes it, else the portable build
+        r = subprocess.run(base[:2] + ["-march=native"] + base[2:] + tail,
+                           capture_output=True)
+        if r.returncode != 0:
+            subprocess.run(base + tail, check=True)
+        os.replace(tmp, _SO)
 
 
 def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        stale = not os.path.exists(_SO) or any(
-            os.path.getmtime(src) > os.path.getmtime(_SO)
-            for src in _SOURCES + [os.path.join(_DIR, "__init__.py")]
-        )
-        if stale:
+        if _stale():
             _build()
         _lib = ctypes.CDLL(_SO)
         _declare(_lib)
@@ -72,6 +85,56 @@ def _declare(L: ctypes.CDLL) -> None:
     L.bwt_merge_build.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
                                   u32p, u64p, ctypes.c_int64, i64p]
     L.bwt_merge_build.restype = ctypes.c_int64
+
+    # Pointer params are declared c_void_p: it accepts every call-site form
+    # in use (bytes, None, byref(Structure), ctypes arrays, string buffers,
+    # numpy .ctypes.data_as(...)) while rejecting raw ndarrays (callers use
+    # explicit data pointers). Scalars carry their exact C width so bare
+    # Python ints can never truncate again.
+    P, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int32,
+                        ctypes.c_int64, ctypes.c_double)
+
+    # --- align_host.cpp ---
+    L.bt_buf_free.argtypes = [P]
+    L.bt_buf_free.restype = None
+    L.bt_hugify.argtypes = [P, i64]
+    L.bt_hugify.restype = P
+    L.bt_build_ilv.argtypes = [P]
+    L.bt_build_ilv.restype = P
+    L.bt_build_ilv2.argtypes = [P]
+    L.bt_build_ilv2.restype = P
+    L.bt_sw_extend.argtypes = [P, i32, P, i32, P, i32, i32, i32, i32,
+                               i32, i32, i32, i32, i32, P]
+    L.bt_sw_extend.restype = i32
+    L.bt_occ_cg_x8.argtypes = [P, P, i32, P, P]
+    L.bt_occ_cg_x8.restype = i32
+    L.bt_occ_cg_x8v.argtypes = [P, P, P, P, P]
+    L.bt_occ_cg_x8v.restype = i32
+    L.bt_occ_cg_scalar.argtypes = [P, i64, i32, P, P]
+    L.bt_occ_cg_scalar.restype = i32
+    L.bt_occ_bench.argtypes = [P, i64, i32, i32]
+    L.bt_occ_bench.restype = i64
+    L.bt_worker1_batch.argtypes = [P, P, P, P, P, P, P, i32, P, i32, P, i32]
+    L.bt_worker1_batch.restype = i32
+    L.bt_align_se_batch.argtypes = (
+        [P] * 5 +                      # dau, par, bns, optc, o2c
+        [P] * 3 + [P] * 3 + [P] * 3 +  # reads/offs/lens ×{clipped,full,qual}
+        [P] * 3 + [P, P, P] +          # names triple, clip5, clip3, py_only
+        [P, P] +                       # ann_names_cat, ann_name_offs
+        [P, i32, i64, i32, i32] +      # rg, rg_len, n_processed, n, threads
+        [P] +                          # inj
+        [P, P, P])                     # out_buf, out_lens, status
+    L.bt_align_se_batch.restype = i32
+    L.bt_align_pe_batch.argtypes = (
+        [P] * 6 +                      # dau, par, bns, optc, o2c, o3c
+        [P] * 3 + [P] * 3 + [P] * 3 +
+        [P] * 3 + [P, P, P] +
+        [P, P] +
+        [P, i32, i64, i32, i32] +
+        [P, i32] +                     # pes_io, pes_given
+        [P] +                          # inj
+        [P, P, P])
+    L.bt_align_pe_batch.restype = i32
 
 
 def _sa_alloc(n: int, dtype) -> np.ndarray:

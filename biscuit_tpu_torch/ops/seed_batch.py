@@ -629,6 +629,18 @@ def seed_resident_warps(L: int, wide: bool, S: int = SEED_CAP):
             int(lib.smem_seed_lane_bytes(L, S, int(wide))))
 
 
+def seed_lane_bytes(L: int, wide: bool, device, S: int = SEED_CAP) -> int:
+    """Device memory one lane of `collect_intv_flat` takes at read length
+    L: its converted read, length and strand, its S rows of the rank dtype
+    with their count and flag, twice over (the compacted copy), and on CUDA
+    the scratch K3 gives a lane whose interval lists exceed an SM's shared
+    memory."""
+    n = 4 * L + 8 + 2 * (S * 5 * (8 if wide else 4) + 5)
+    if torch.device(device).type == "cuda":
+        n += int(_seed_lib().smem_seed_scratch_bytes(L, S, int(wide)))
+    return n
+
+
 def _launch_seed(fm: FMPair, reads, lens, parents, params, S: int):
     """Launch K3 on prepared inputs (int32, contiguous, on fm's device):
     (rows [B, S, 5] of the rank dtype, n [B] int32, ov [B] bool). No host

@@ -2,14 +2,15 @@
 """Bring-up check of the torch port (biscuit_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` and `pileup`
-        of this tree and of another checkout side by side on the data of
-        phases 4, 4b and 6, and K6's and K4's launches of both trees on the
-        same inputs)
+    python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` (the
+        device-jax engine) and `pileup` of this tree and of another checkout
+        side by side on the data of phases 4, 4b and 6, and K6's and K4's
+        launches of both trees on the same inputs)
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
   2. build the seven CUDA sources of the align and pileup slices with nvcc,
+     and the native library (g++: align_host.cpp, sais.cpp, bwt_merge.cpp),
      in parallel; registers, spills and shared memory of each kernel from
      ptxas, warps resident an SM from the occupancy calculator
   3. each kernel against its plain torch version on the card, on
@@ -50,6 +51,9 @@ Phases, one line each (more for the kernel table):
      6's size in coordinate order, two samples, shuffled (every chunk on its
      device-memory path), on one site, empty and with codes in [21, 32);
      its general entry (mesh.py's contract) keeps its own cases
+  Phases 4 to 4c and 6 run `align` with the device-jax engine
+  (BISCUIT_TPU_TORCH_ENGINE=device-jax), whose kernels they hold; 4d runs
+  the CLI's default engine, `device` (the hybrid), and `native`.
   4. the SE align slice end to end: a 5 Mbp genome and 4096 150 bp WGBS
      reads (tools/make_testdata.py, plus SNPs and small indels so that
      global alignment has work), the index built in-process, then the
@@ -72,6 +76,24 @@ Phases, one line each (more for the kernel table):
      the SAM, SA:Z tags included, must equal the port's host engine's byte
      for byte. In 4, 4b and 4c no global alignment may be left for worker2
      (cigar_late_lanes 0)
+  4d. the engines: the hybrid (K3 and K4 on the card into the native C++
+     engine) at SA_CAP 0, 8, 16 and 64, twice each, and the native engine
+     at -@ 1 (twice) and at -@ os.cpu_count(), on the reads of phases 4 and
+     4b; every SAM must equal device-jax's of phases 4 and 4b byte for byte,
+     K3 must launch in every hybrid run and K4's interval entry in every one
+     with SA_CAP above 0; reads/s of each engine with the host's core count,
+     the hybrid's inject and native seconds; the same sweep on 8192 reads
+     of a genome with repeats (torch_testdata.repeat_dataset) at -@ 1 and
+     at -@ os.cpu_count(), twice each, SAM equal to the native engine's,
+     which equals device-jax's on the first 1024; the per-call set-up
+     (index load, NativeAligner, DeviceSeeder) timed on its own; -V -@ 2
+     through the native engine (its fork pool) once after CUDA init and
+     K3's launches, no launch in it, and through the default engine (the
+     chunk on the device engine), both SAM equal to device-jax's; a warm
+     hybrid PE run under torch.profiler. In phase 6, the hybrid at the
+     default SA_CAP and at 64 (pipelined sub-batches of DEVICE_BATCH reads)
+     and the native engine on its 40,000 reads at -@ 1, both at -@
+     os.cpu_count(), each beside its set-up; SAM equal to device-jax's
   6. the pileup slice end to end: a 200 kbp genome at 30x (40,000 directional
      WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
      card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
@@ -126,6 +148,10 @@ INT_OPS_PER_S = 67e12 / 4
 # affine-gap recurrence; the global kernel also packs direction bits)
 CELL_OPS = {"sw_extend": 12, "sw_global": 14, "sw_local": 14}
 N_CHECK = 512            # reads whose SAM is held to the host engine
+# phase 4d: the hybrid engine's SA_CAP sweep (occurrences a seed resolved
+# by K4 on the card; the native engine walks the rest)
+SA_CAPS = (0, 8, 16, 64)
+N_REP, N_REP_CHECK = 8192, 1024  # phase 4d: reads on the genome with repeats
 
 
 def say(*a):
@@ -478,6 +504,8 @@ def align_ab(work: str, other: str) -> int:
     gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
     from biscuit_tpu_torch import cli
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
+    # the engine both trees have (a tree before the engine switch ignores it)
+    os.environ["BISCUIT_TPU_TORCH_ENGINE"] = "device-jax"
     with open(gsam, "w") as f, contextlib.redirect_stdout(f):
         if cli.main(["align", gfa, gfq]) != 0:
             return 1
@@ -598,16 +626,27 @@ def smoke(work: str) -> int:
     from biscuit_tpu_torch import kernels
     from biscuit_tpu_torch.ops import (chain_batch, pileup_count, seed_batch,
                                        sw_extend, sw_global, sw_local)
+    from biscuit_tpu_torch import native
     t0 = time.perf_counter()
     libs = (sw_extend._lib, sw_global._lib, seed_batch._lib,
             seed_batch._seed_lib, chain_batch._lib, sw_local._lib,
             pileup_count._lib)
-    with ThreadPoolExecutor(len(libs)) as pool:
+
+    def native_lib():
+        """g++ of the native library beside the nvcc builds: seconds."""
+        t1 = time.perf_counter()
+        native.lib()
+        return time.perf_counter() - t1
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        native_job = pool.submit(native_lib)
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
+        native_build_s = native_job.result()
     say(f"[2] built {sorted(kernels.BUILD_SECONDS) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s; per source "
         f"{json.dumps({k: round(v, 2) for k, v in kernels.BUILD_SECONDS.items()})}")
+    say(f"[2] native library (g++, align_host.cpp with sais.cpp and "
+        f"bwt_merge.cpp): {native_build_s:.1f} s (0: cached)")
 
     for src in sorted(kernels.BUILD_RESOURCES):
         for kern, regs, st, ld, smem in kernels.BUILD_RESOURCES[src]:
@@ -1473,6 +1512,9 @@ def smoke(work: str) -> int:
     from biscuit_tpu_torch.align.pipeline import AlignerState, process_seqs
     from torch_testdata import damage_mates, load_pairs, trim_fastq
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
+    # phases 4 to 4c and 6 drive the device engine, whose kernels they hold;
+    # phase 4d the CLI's default, the hybrid, and the native engine
+    os.environ["BISCUIT_TPU_TORCH_ENGINE"] = "device-jax"
 
     def align(argv):
         """The CLI on the card, every count set to 0 just before it and read
@@ -1540,14 +1582,14 @@ def smoke(work: str) -> int:
     if mapped < 0.9 * N_READS:
         raise AssertionError(f"only {mapped} of {N_READS} reads mapped")
     # the first N_CHECK reads through the port's host engine
-    want, host_s = host_sam(read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK], 0)
+    want, host_se_s = host_sam(read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK], 0)
     if not "".join(ln + "\n" for ln in body).startswith(want):
         raise AssertionError("device SAM differs from the host engine's "
                              f"in the first {N_CHECK} reads")
     n_ind = sum(1 for f in prim if "I" in f[5] or "D" in f[5])
     say(f"[4] align: {N_READS} reads, {mapped} mapped, {n_ind} with I/D, "
         f"first {N_CHECK} SAM byte-identical to the host engine "
-        f"({host_s:.1f} s on host)")
+        f"({host_se_s:.1f} s on host)")
     say(f"[4] stages (s): {json.dumps({k: round(v, 3) for k, v in rep.items()})}")
     check_lanes(rep, 2 * N_READS, "4")
     say(f"[4] launches: {json.dumps(launches)}")
@@ -1591,13 +1633,14 @@ def smoke(work: str) -> int:
     smapped, _n = damaged_mapped(primaries(sbody, 2 * N_PAIRS))
     # the whole chunk through the port's host engine: the insert-size
     # statistics span the chunk; its worker1 runs in a fork pool
-    want, host_s = host_sam(load_pairs(fq1, fq2), MEM_F_PE, os.cpu_count() or 1)
+    want, host_pe_s = host_sam(load_pairs(fq1, fq2), MEM_F_PE,
+                               os.cpu_count() or 1)
     if "".join(ln + "\n" for ln in pbody) != want:
         raise AssertionError("PE device SAM differs from the host engine's")
     say(f"[4b] align: {2 * N_PAIRS} reads, {pmapped} mapped, damaged mates "
         f"{dmapped} of {n_damaged} mapped ({smapped} with rescue off, -S, "
         f"{swall:.2f} s); SAM of the whole chunk byte-identical to the host "
-        f"engine ({host_s:.1f} s on host)")
+        f"engine ({host_pe_s:.1f} s on host)")
     say(f"[4b] stages (s): {json.dumps({k: round(v, 3) for k, v in prep.items()})}")
     check_lanes(prep, 2 * 2 * N_PAIRS, "4b")
     say(f"[4b] launches: {json.dumps(plaunch)}; rescue lanes "
@@ -1853,6 +1896,199 @@ def smoke(work: str) -> int:
             f"capacities: {json.dumps(redone)}; {len(seqs) / wwall:.1f} reads/s, wall "
             f"{wwall:.2f} s [{card}]")
 
+    # 4d. the engines: the hybrid (`device`, the CLI's default: K3 and K4 on
+    # the card, chaining, extension and SAM in the native C++ engine), the
+    # native engine alone and `device-jax` (phases 4 and 4b) on the same
+    # reads. Their SAM must be device-jax's, which phases 4 and 4b held to
+    # the host engine, byte for byte, at every SA_CAP of the sweep.
+    ncpu = os.cpu_count()
+    say(f"[4d] native library (align_host.cpp, sais.cpp, bwt_merge.cpp) "
+        f"built in {native_build_s:.1f} s by g++ -std=c++20; host "
+        f"os.cpu_count() = {ncpu}")
+    cap0 = device_engine.DeviceSeeder.SA_CAP
+
+    def engine_run(engine, argv, sa_cap=cap0, threads=1):
+        """align through the CLI with BISCUIT_TPU_TORCH_ENGINE=engine, the
+        hybrid's SA_CAP and -@ threads."""
+        os.environ["BISCUIT_TPU_TORCH_ENGINE"] = engine
+        device_engine.DeviceSeeder.SA_CAP = sa_cap
+        try:
+            return align(["-@", str(threads), *argv])
+        finally:
+            os.environ["BISCUIT_TPU_TORCH_ENGINE"] = "device-jax"
+            device_engine.DeviceSeeder.SA_CAP = cap0
+
+    def rps(n, wall):
+        return f"{n / wall:.1f} reads/s ({wall:.3f} s, os.cpu_count() {ncpu})"
+
+    def setup_s(fasta, what):
+        """The per-call set-up inside a CLI wall, timed on its own: the
+        index load and the native engine's tables (both engines), the
+        seeder's tables on the card (the hybrid). {engine: seconds}."""
+        from biscuit_tpu_torch.align.native_engine import NativeAligner
+        t0 = time.perf_counter()
+        st_ = AlignerState(BisIndex.load(fasta))
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        NativeAligner(st_)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        device_engine.DeviceSeeder(st_, "cuda")
+        torch.cuda.synchronize()
+        t_sdr = time.perf_counter() - t0
+        say(f"[4d] set-up a CLI call on {what}: index load {t_load:.3f} s, "
+            f"NativeAligner {t_nat:.3f} s, DeviceSeeder {t_sdr:.3f} s [{card}]")
+        return {"device": t_load + t_nat + t_sdr, "native": t_load + t_nat}
+
+    def past(engine, n, wall, setup):
+        return (f"; past the set-up of {setup[engine]:.3f} s "
+                f"{1e6 * (wall - setup[engine]) / n:.2f} us a read")
+
+    setup4 = setup_s(fa, "phase 4's genome")
+    k34 = ("smem_seed", "sa_walk_intervals")
+    hyb_launch = {k: 0 for k in k34}
+    sweep = {}
+    for tag, argv, want, n in (("SE", [fa, fq], body, N_READS),
+                               ("PE", [fa, fq1, fq2], pbody, 2 * N_PAIRS)):
+        for rep_i in range(2):
+            for cap in SA_CAPS:
+                hbody, hwall, hl, hrep = engine_run("device", argv, cap)
+                if hbody != want:
+                    raise AssertionError(f"{tag} hybrid SAM at SA_CAP {cap} "
+                                         "differs from device-jax's")
+                if hl.get("smem_seed", 0) < 1 or (
+                        (hl.get("sa_walk_intervals", 0) > 0) != (cap > 0)):
+                    raise AssertionError(f"{tag} hybrid at SA_CAP {cap}: "
+                                         f"launches {hl}")
+                if cap in (cap0, 64) and rep_i == 0:
+                    for k in k34:
+                        hyb_launch[k] += hl.get(k, 0)
+                sweep.setdefault((tag, cap), []).append(hwall)
+                say(f"[4d] {tag} hybrid SA_CAP {cap}: {rps(n, hwall)}; inject "
+                    f"{hrep.get('inject', 0):.3f} s, native "
+                    f"{hrep.get('native', 0):.3f} s; seed_overflow_lanes "
+                    f"{hrep['seed_overflow_lanes']}, sa_rows {hrep['sa_rows']}, "
+                    f"sa_jobs {hrep['sa_jobs']}; launches "
+                    f"{json.dumps({k: hl.get(k, 0) for k in k34})}; SAM == "
+                    f"device-jax's [{card}]")
+        for threads in (1, 1, ncpu):
+            nbody, nwall, nl, _nrep = engine_run("native", argv, threads=threads)
+            if nbody != want or any(nl.values()):
+                raise AssertionError(f"{tag} native SAM differs from "
+                                     f"device-jax's, or it launched {nl}")
+            say(f"[4d] {tag} native -@ {threads}: {rps(n, nwall)}"
+                f"{past('native', n, nwall, setup4)}; SAM == device-jax's "
+                f"[{card}]")
+        hbody, hwall, _hl, hrep = engine_run("device", argv, threads=ncpu)
+        if hbody != want:
+            raise AssertionError(f"{tag} hybrid SAM at -@ {ncpu} differs")
+        say(f"[4d] {tag} hybrid -@ {ncpu} SA_CAP {cap0}: {rps(n, hwall)}"
+            f"{past('device', n, hwall, setup4)}; inject "
+            f"{hrep.get('inject', 0):.3f} s, native "
+            f"{hrep.get('native', 0):.3f} s [{card}]")
+    for tag in ("SE", "PE"):
+        say(f"[4d] {tag} SA_CAP sweep, reads/s of two runs each: " + "; ".join(
+            f"{cap}: " + ", ".join(f"{(N_READS if tag == 'SE' else 2 * N_PAIRS) / w:.1f}"
+                                   for w in sweep[tag, cap]) for cap in SA_CAPS)
+            + f" (default {cap0}; os.cpu_count() {ncpu}) [{card}]")
+    say(f"[4d] engines, reads/s at -@ 1 (SE 4096 reads / PE 2048 pairs): "
+        f"device-jax {N_READS / wall:.1f} / {2 * N_PAIRS / pwall:.1f}; device "
+        f"(hybrid, SA_CAP {cap0}) {N_READS / min(sweep['SE', cap0]):.1f} / "
+        f"{2 * N_PAIRS / min(sweep['PE', cap0]):.1f} (the faster of two); host: "
+        f"{N_CHECK / host_se_s:.1f} on phase 4's first {N_CHECK} reads at -@ 1, "
+        f"{2 * N_PAIRS / host_pe_s:.1f} on phase 4b's chunk at -@ {ncpu} "
+        f"(the runs that held the SAM); os.cpu_count() {ncpu} [{card}]")
+    # the SA_CAP sweep on a genome with repeats
+    # (torch_testdata.repeat_dataset: 80 copies of a 150 bp unit between
+    # random flanks of 20 kbp, half the reads from the repeat, whose seeds
+    # have about 80 occurrences), where 8 and 64 differ in the walks K4
+    # takes from the C++ engine; at -@ 1 twice and at -@ os.cpu_count()
+    # device-jax takes about 80 s for all the reads here (its host
+    # Python over 80 occurrences a seed), so it holds the native engine on
+    # the first N_REP_CHECK reads, and the native engine holds the hybrid
+    # on all of them
+    from torch_testdata import repeat_dataset
+    rfa, rfq, _ridx = repeat_dataset(os.path.join(work, "rep"), n_reads=N_REP)
+    del _ridx
+    rfq_c = os.path.join(work, "rep", "check.fq")
+    with open(rfq) as f, open(rfq_c, "w") as g:
+        g.writelines(f.readlines()[:4 * N_REP_CHECK])
+    cwant, cwall, _l, _r = engine_run("device-jax", [rfa, rfq_c])
+    cbody, _w, _l, _r = engine_run("native", [rfa, rfq_c])
+    rwant, rwall, _l, _r = engine_run("native", [rfa, rfq])
+    if cbody != cwant or rwant[:len(cbody)] != cbody:
+        raise AssertionError("repeats: native SAM differs from device-jax's")
+    say(f"[4d] repeats: {N_REP} reads of 100 bp; native -@ 1 "
+        f"{rps(N_REP, rwall)}; its SAM == device-jax's on the first "
+        f"{N_REP_CHECK} (device-jax {rps(N_REP_CHECK, cwall)}) [{card}]")
+    rsweep = {}
+    for threads in (1, 1, ncpu, ncpu):
+        for cap in SA_CAPS:
+            hbody, hwall, hl, hrep = engine_run("device", [rfa, rfq], cap,
+                                                threads)
+            if hbody != rwant or hl.get("smem_seed", 0) < 1 or (
+                    (hl.get("sa_walk_intervals", 0) > 0) != (cap > 0)):
+                raise AssertionError(f"repeats: the hybrid at SA_CAP {cap} "
+                                     f"-@ {threads}: SAM differs from "
+                                     f"native's, or launched {hl}")
+            rsweep.setdefault((threads, cap), []).append(hwall)
+            say(f"[4d] repeats, hybrid -@ {threads} SA_CAP {cap}: "
+                f"{rps(N_REP, hwall)}; inject {hrep.get('inject', 0):.3f} s, "
+                f"native {hrep.get('native', 0):.3f} s; sa_rows "
+                f"{hrep['sa_rows']}, sa_jobs {hrep['sa_jobs']} [{card}]")
+    for threads in (1, ncpu):
+        say(f"[4d] repeats SA_CAP sweep at -@ {threads}, reads/s of two runs "
+            "each: " + "; ".join(
+            f"{cap}: " + ", ".join(f"{N_REP / w:.1f}" for w in
+                                   rsweep[threads, cap]) for cap in SA_CAPS)
+            + f" (default {cap0}; os.cpu_count() {ncpu}) [{card}]")
+    if min(hyb_launch.values()) < 1:
+        raise AssertionError(f"the hybrid launched {hyb_launch}")
+    for r in table:
+        if r["name"] in k34:
+            r["launches"] += hyb_launch[r["name"]]
+    # -V: the native engine's region-marshalling path, which forks a worker
+    # pool (-@ 2, at least 256 reads), serves it when `native` is named: in
+    # this process, after CUDA init and K3's launches, its children must run
+    # C++ and Python only, and it launches nothing. The default engine hands
+    # a -V chunk to the device engine (its fused C++ entries take no -V), on
+    # the seeder's tables: K3 launches, no injection is built
+    import multiprocessing
+    vfq = os.path.join(work, "v512.fq")
+    with open(fq) as f, open(vfq, "w") as g:
+        g.writelines(f.readlines()[:4 * N_CHECK])
+    vwant, _w, _l, _r = engine_run("device-jax", ["-V", fa, vfq])
+    pools, get_context = [], multiprocessing.get_context
+    multiprocessing.get_context = lambda m=None: pools.append(m) or \
+        get_context(m)
+    try:
+        nbody, nwall, nl, _r = engine_run("native", ["-V", fa, vfq], threads=2)
+    finally:
+        multiprocessing.get_context = get_context
+    if nbody != vwant or pools != ["fork"] or any(nl.values()):
+        raise AssertionError(f"-V -@ 2 native: SAM differs from device-jax's, "
+                             f"pools {pools}, or launched {nl}")
+    say(f"[4d] -V -@ 2, native (its fork pool, after CUDA init and "
+        f"{hyb_launch['smem_seed']} K3 launches): {N_CHECK} reads, SAM == "
+        f"device-jax's -V, no launch, {rps(N_CHECK, nwall)} [{card}]")
+    vbody, vwall, vl, vrep = engine_run("device", ["-V", fa, vfq], threads=2)
+    if vbody != vwant or vl.get("smem_seed", 0) < 1 or "inject" in vrep or \
+            "native" in vrep:
+        raise AssertionError(f"-V -@ 2 device: SAM differs from device-jax's, "
+                             f"launched {vl}, or stages {sorted(vrep)}")
+    say(f"[4d] -V -@ 2, device (the chunk on the device engine): SAM == "
+        f"device-jax's -V, launches {json.dumps(vl)}, {rps(N_CHECK, vwall)} "
+        f"[{card}]")
+    # where the card's time goes in the hybrid: a warm PE run under
+    # torch.profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _b, hwall, _l, hrep = engine_run("device", [fa, fq1, fq2])
+    say(f"[4d] profiled warm hybrid PE run: {rps(2 * N_PAIRS, hwall)}; "
+        f"inject {hrep.get('inject', 0):.3f} s, native "
+        f"{hrep.get('native', 0):.3f} s [{card}]")
+    say_busy("4d", prof, hwall, "smem_seed_kernel")
+
     # 6. the pileup slice end to end: align on the card, sort, pileup on the
     # card through the CLI, against the same CLI on the CPU
     from biscuit_tpu_torch.pileup import engine as plp_engine
@@ -1882,6 +2118,33 @@ def smoke(work: str) -> int:
         raise AssertionError("sort failed")
     say(f"[6] align {t_align:.1f} s = {PLP_READS / t_align:.1f} reads/s on the "
         f"card; sort to BAM {time.perf_counter() - t0:.1f} s [{card}]")
+    # 4d on phase 6's reads: the hybrid pipelines its sub-batches of
+    # DEVICE_BATCH reads (the injection of the next beside the native
+    # engine's align of this one); its SAM and the native engine's must be
+    # device-jax's
+    with open(gsam) as f:
+        gwant = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+    n_sub = -(-PLP_READS // device_engine.DEVICE_BATCH)
+    setup6 = setup_s(gfa, "phase 6's genome")
+    for engine, cap, threads in [("device", c, 1) for c in sorted({cap0, 64})] + [
+            ("native", cap0, 1), ("device", cap0, ncpu), ("native", cap0, ncpu)]:
+        gb, gwall, gl, grep = engine_run(engine, [gfa, gfq], cap, threads)
+        if gb != gwant:
+            raise AssertionError(f"phase 6's reads: {engine} SAM at SA_CAP "
+                                 f"{cap} differs from device-jax's")
+        if engine == "device" and (gl.get("smem_seed", 0) != n_sub or (
+                gl.get("sa_walk_intervals", 0) != (n_sub if cap else 0))):
+            raise AssertionError(f"phase 6's reads: the hybrid launched {gl} "
+                                 f"for {n_sub} sub-batches")
+        split = (f"; inject {grep.get('inject', 0):.3f} s, native "
+                 f"{grep.get('native', 0):.3f} s, their sum over the wall "
+                 f"{(grep.get('inject', 0) + grep.get('native', 0)) / gwall:.3f}"
+                 f", {n_sub} sub-batches" if engine == "device" else "")
+        say(f"[4d] phase 6's {PLP_READS} reads, {engine} -@ {threads}"
+            + (f" SA_CAP {cap}" if engine == "device" else "")
+            + f": {PLP_READS / gwall:.1f} reads/s ({gwall:.3f} s, "
+            f"os.cpu_count() {ncpu}){past(engine, PLP_READS, gwall, setup6)}"
+            f"{split}; SAM == device-jax's [{card}]")
 
     vcf_gpu, vcf_cpu = (os.path.join(pdir, n) for n in ("gpu.vcf", "cpu.vcf"))
 

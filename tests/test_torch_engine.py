@@ -505,12 +505,15 @@ COPIES = {
     # bisindex_from_numpy is the port's addition
     "index/fmindex": ("index/fmindex.py", ("bisindex_from_numpy",)),
     "index/build": ("index/build.py", ()),
-    # the loader of sais.cpp and bwt_merge.cpp only: no PGO or
-    # sanitizer build, and _declare holds the two sources' functions
+    # the loader of sais.cpp, bwt_merge.cpp and align_host.cpp: no PGO or
+    # sanitizer build (one build at a time under a lock, _stale, which
+    # lib also asks), and _declare holds the three sources' functions
     # (test_native_declare_is_a_prefix_of_the_source)
     "native": ("native/__init__.py", (
         "_SAN", "_SO", "_PGO_DIR", "_PGO_STAMP", "_PGO_SO_MARK", "_src_stamp",
-        "_has_gcda", "_pgo_profile_fresh", "_build", "train_pgo", "_declare")),
+        "_has_gcda", "_pgo_profile_fresh", "_stale", "_build", "lib",
+        "train_pgo", "_declare")),
+    "align/native_engine": ("align/native_engine.py", ()),
     "io/fastq": ("io/fastq.py", ()),
     "io/bgzf": ("io/bgzf.py", ()),
     "io/bai": ("io/bai.py", ()),
@@ -542,10 +545,12 @@ def test_copied_module_matches_source(name):
     assert _code(dst, drop, args) == _code(src, drop, args)
 
 
-@pytest.mark.parametrize("name", ["sais.cpp", "bwt_merge.cpp"])
+@pytest.mark.parametrize("name", ["sais.cpp", "bwt_merge.cpp",
+                                  "align_host.cpp"])
 def test_copied_native_source_matches(name):
-    """The C++ sources of the index construction are their sources' code:
-    every line that is not a // comment is the same."""
+    """The C++ sources of the index construction and of the native align
+    engine are their sources' code: every line that is not a // comment is
+    the same."""
     def code(pkg):
         with open(os.path.join(REPO, pkg, "native", name)) as f:
             return [ln for ln in f if not ln.lstrip().startswith("//")]
@@ -568,10 +573,11 @@ def _function(rel, pkg, name):
 
 def test_native_declare_is_a_prefix_of_the_source():
     """The port's _declare is the source's up to the last function of
-    sais.cpp and bwt_merge.cpp."""
+    sais.cpp, bwt_merge.cpp and align_host.cpp."""
     mine = _function("native/__init__.py", "biscuit_tpu_torch", "_declare").body
     theirs = _function("native/__init__.py", "biscuit_tpu", "_declare").body
-    assert len(mine) >= 10
+    assert len(mine) >= 40
+    assert ast.unparse(mine[-1]) == "L.bt_align_pe_batch.restype = i32"
     assert [ast.dump(n) for n in mine] == \
         [ast.dump(n) for n in theirs[:len(mine)]]
 

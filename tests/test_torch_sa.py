@@ -7,9 +7,10 @@ package's expansion of the row (np.repeat of the strand, x0 + arange) through
 BISCUIT_TPU_SA_INTV=32 builds of one genome and on the edge rows of
 `torch_testdata.sa_rows`. An sa_intv-32 view of the narrow tables (its
 samples stride-subsampled) gives the positions of the index built at 32.
-The engine's `_collect_seeds`, which hands the seeder's rows to the interval
-entry, gives every (lane, seed, k) the position of the per-occurrence packing
-it replaced, lanes the host seeded included. Exact equality throughout.
+The engine's `_collect_seeds`, which hands the seeder's rows and after them
+those of the lanes the host seeded to one call of the interval entry, gives
+every (lane, seed, k) the position of the per-occurrence packing it
+replaced. Exact equality throughout.
 """
 import numpy as np
 import pytest
@@ -214,7 +215,9 @@ def test_collect_seeds_hands_the_entry_rows_that_fill_out(data, kind,
     device (which_row, x0_row, kmax_row, off_row) must agree with what it
     computes on the host (total, the lookups' kmax and off) from the seed
     tuples. The rows are those of the lanes the device seeded, in lane
-    order; a lane it flags has none."""
+    order (a lane it flags has none), then those of the lanes the host
+    seeded, in lane order: one call of the interval entry, and none of the
+    rank entry."""
     seqs = load_reads(data["se"], 40)
     S = 3 if kind == "se_overflow" else tsb.SEED_CAP
     seeded, handed = [], []
@@ -228,6 +231,8 @@ def test_collect_seeds_hands_the_entry_rows_that_fill_out(data, kind,
     def entry(fm, *args):
         handed.append(args)
         return real_entry(fm, *args)
+    # the engine holds no name of the rank entry to call
+    assert not hasattr(eng, "sa_batch")
     monkeypatch.setattr(eng, "collect_intv_batch", seeder)
     monkeypatch.setattr(eng, "sa_batch_intervals", entry)
     st = AlignerState(data["idx"]["narrow"])
@@ -240,13 +245,19 @@ def test_collect_seeds_hands_the_entry_rows_that_fill_out(data, kind,
     overflow = seeded[0]
     which_row, x0_row, kmax_row, off_row, total = handed[0]
     host = [(lanes[i][1], r[2], min(r[4], eng.SA_PREFETCH_CAP))
-            for i in range(len(lanes)) if not overflow[i] for r in seeds[i]]
+            for flagged in (False, True)
+            for i in range(len(lanes)) if overflow[i] == flagged
+            for r in seeds[i]]
     want = np.asarray(host, np.int64).reshape(-1, 3)
     np.testing.assert_array_equal(which_row.numpy(), want[:, 0])
     np.testing.assert_array_equal(x0_row.numpy(), want[:, 1])
     kmax = kmax_row.numpy()
     np.testing.assert_array_equal(kmax, want[:, 2])
     np.testing.assert_array_equal(off_row.numpy(), np.cumsum(kmax) - kmax)
-    assert total == int(kmax.sum()) == rep["sa_jobs"] > 0
-    assert kmax.size == rep["sa_rows"]
-    assert bool(overflow.any()) == (kind == "se_overflow")
+    assert total == int(kmax.sum()) == rep["sa_jobs"] + \
+        rep["sa_overflow_jobs"] > 0
+    n_dev_rows = sum(len(seeds[i]) for i in range(len(lanes))
+                     if not overflow[i])
+    assert n_dev_rows == rep["sa_rows"] <= kmax.size
+    assert bool(overflow.any()) == (kind == "se_overflow") == \
+        (kmax.size > n_dev_rows) == (rep["sa_overflow_jobs"] > 0)
