@@ -2,10 +2,11 @@
 
 The JAX package `biscuit_tpu` stays the reference. This package runs
 `index`, `align` (FASTQ to SAM, single-end and paired-end, through a torch
-port of the JAX device engine), `sort`, `bamindex` and `pileup` (sorted BAM
-to VCF), with its device kernels written by hand in CUDA for Hopper
-(sm_90a) under `kernels/`, each beside a plain torch version that the CPU
-runs. It imports torch, never jax, and nothing of `biscuit_tpu`: every host
+port of the JAX device engine), `sort`, `bamindex`, `pileup` (sorted BAM
+to VCF) and the subcommands downstream of it (`vcf2bed`, `mergecg`,
+`epiread`, `rectangle`, `asm`), with its device kernels written by hand in
+CUDA for Hopper (sm_90a) under `kernels/`, each beside a plain torch
+version that the CPU runs. It imports torch, never jax, and nothing of `biscuit_tpu`: every host
 module it needs is a copy of its own, held to its source by
 tests/test_torch_engine.py.
 """

@@ -1,15 +1,22 @@
 """biscuit_tpu_torch command-line interface.
 
-The counterparts of biscuit_tpu.cli's `index`, `align`, `sort`, `bamindex`
-and `pileup`, with the same options and the same output. `align` runs SE
-and PE reads through the engine named by BISCUIT_TPU_TORCH_ENGINE (default
-`device`, the hybrid engine: seeds from the device into the native C++
-engine; `device-jax`, `native` and `host` when named; see ENGINES) and
-`pileup` makes the count matrices of every window (ops/pileup_count.py) on
-the device named by BISCUIT_TPU_TORCH_DEVICE (default `cuda`; `cpu` runs
-the plain torch versions of the kernels). SAM and VCF go to stdout unless `-o` names a
-file. Any other subcommand of biscuit_tpu is answered with "not ported
-yet" and exit code 1.
+The counterparts of biscuit_tpu.cli's `index`, `align`, `sort`, `bamindex`,
+`pileup`, `vcf2bed`, `mergecg`, `epiread`, `rectangle` and `asm`, with the
+same options and the same output. `align` runs SE and PE reads through the
+engine named by BISCUIT_TPU_TORCH_ENGINE (default `device`, the hybrid
+engine: seeds from the device into the native C++ engine; `device-jax`,
+`native` and `host` when named; see ENGINES). `pileup` runs the engine
+named by BISCUIT_TPU_TORCH_PILEUP (see PILEUP_ENGINES): `device` (the
+default), which makes the count matrices of every window
+(ops/pileup_count.py) on the device named by BISCUIT_TPU_TORCH_DEVICE
+(default `cuda`; `cpu` runs the plain torch versions of the kernels), or
+`native`, the C++ window engine, when named. `vcf2bed` and `mergecg` run
+their C++ line filters unless BISCUIT_TPU_TORCH_STREAMS=python; `epiread`
+runs the C++ raw-BAM window engine on BAM input unless
+BISCUIT_TPU_TORCH_PILEUP=device names its Python window walk (epiread has
+no kernel). None of those five uses torch. SAM and VCF go to stdout
+unless `-o` names a file. Any other subcommand of biscuit_tpu is answered
+with "not ported yet" and exit code 1.
 
     python -m biscuit_tpu_torch.cli index <genome.fa>
     python -m biscuit_tpu_torch.cli align <genome.fa> <reads.fq> > out.sam
@@ -447,14 +454,30 @@ Input/output options:
     return 0
 
 
+# pileup's engines, picked by BISCUIT_TPU_TORCH_PILEUP (default
+# PILEUP_DEFAULT):
+# device  the count matrices of every window made on the device named by
+#         BISCUIT_TPU_TORCH_DEVICE (K9, ops/pileup_count.py), the rest of
+#         the window in Python
+# native  the C++ window engine (native/pileup_native.cpp) on raw BAM
+#         records, read from the decompressed BAM or, where a .bai lies
+#         beside it, block by block; on record objects for SAM input. No
+#         torch, no device
+# -v above 0 runs the per-datum Python path under either. epiread reads the
+# same switch (main_epiread): `native`, its default, is its C++ raw-BAM
+# engine, `device` its Python window walk.
+PILEUP_ENV = "BISCUIT_TPU_TORCH_PILEUP"
+PILEUP_ENGINES = ("device", "native")
+PILEUP_DEFAULT = "device"
+
+
 def main_pileup(argv):
     """biscuit pileup port (src/pileup.c:1014-1225): windowed joint
     methylation + SNP calling to VCF. Counterpart of
-    biscuit_tpu.cli.main_pileup, with the count matrices of every
-    non-verbose window made on the device named by BISCUIT_TPU_TORCH_DEVICE
-    (default `cuda`)."""
+    biscuit_tpu.cli.main_pileup, on the engine named by
+    BISCUIT_TPU_TORCH_PILEUP (PILEUP_ENGINES)."""
     from .device import resolve
-    from .io.sambam import AlignmentFile
+    from .io.sambam import AlignmentFile, _is_bam
     from .pileup.common import RefCache, NCONTXTS
     from .pileup.engine import (STAGES, PileupConf, meth_average_table,
                                 pileup_window, run_windows, vcf_header)
@@ -504,9 +527,11 @@ Som. Mode Usage: biscuit_tpu pileup [options] <-S -T tum.bam -I norm.bam> <ref.f
 
 Options:
     -g STR      Region to process (whole BAM if absent)
-    -@ INT      Number of window workers [{d.bt.n_threads}]; on a CUDA device
-                the windows run in order in the one process that owns the
-                card, whatever INT is (the output is the same)
+    -@ INT      Number of window workers [{d.bt.n_threads}], a fork pool;
+                under the device engine on a CUDA device the windows run in
+                order in the one process that owns the card, whatever INT
+                is (the output is the same);
+                BISCUIT_TPU_TORCH_PILEUP=native forks them on any device
     -s INT      Window dispatch step [{d.bt.step}]
     -N          NOMe-seq mode [off]
     -S          Somatic mode (requires -T and -I) [off]
@@ -563,9 +588,24 @@ Genotyping options:
         reffn = args[0]
         in_fns = args[1:]
 
-    device = resolve()
+    engine = os.environ.get(PILEUP_ENV, PILEUP_DEFAULT)
+    if engine not in PILEUP_ENGINES:
+        print(f"[E::main_pileup] unknown engine '{engine}' in {PILEUP_ENV} "
+              f"(one of {', '.join(PILEUP_ENGINES)})", file=sys.stderr)
+        return 1
+    # the C++ engine makes no CUDA context: None is its device
+    device = resolve() if engine == "device" else None
     t_open = time.perf_counter()
-    bams = [AlignmentFile(fn) for fn in in_fns]
+    # raw-BAM fast path: the C++ engine parses records straight from the
+    # decompressed blob (fork workers share it copy-on-write)
+    if (engine == "native" and not conf.comm.verbose
+            and all(_is_bam(fn) for fn in in_fns)):
+        from .pileup.native import raw_bam_open
+        # with a usable .bai, stream each window's blocks (bounded memory);
+        # otherwise hold the decompressed blob (shared by fork workers)
+        bams = [raw_bam_open(fn) for fn in in_fns]
+    else:
+        bams = [AlignmentFile(fn) for fn in in_fns]
     hdr = bams[0].header
     # sorted targets (alphabetic, like the reference qsort by name)
     targets = sorted(range(len(hdr.names)),
@@ -748,16 +788,42 @@ def main_bamindex(argv):
     return 0
 
 
+def _sub(name):
+    def run(argv):
+        import importlib
+        mod = importlib.import_module(f".subcmds.{name}",
+                                      package="biscuit_tpu_torch")
+        return mod.main(argv)
+    return run
+
+
+def main_epiread(argv):
+    """epiread (subcmds/epiread.py), which reads pileup's switch:
+    BISCUIT_TPU_TORCH_PILEUP=native (its default) runs the C++ raw-BAM
+    window engine on BAM input, `device` the Python window walk (epiread
+    has no kernel); any other value exits 1, as pileup does."""
+    engine = os.environ.get(PILEUP_ENV, "native")
+    if engine not in PILEUP_ENGINES:
+        print(f"[E::main_epiread] unknown engine '{engine}' in {PILEUP_ENV} "
+              f"(one of {', '.join(PILEUP_ENGINES)})", file=sys.stderr)
+        return 1
+    return _sub("epiread")(argv)
+
+
 SUBCOMMANDS = {
     "index": main_index,
     "align": main_align,
     "pileup": main_pileup,
     "sort": main_sort,
     "bamindex": main_bamindex,
+    "vcf2bed": _sub("vcf2bed"),
+    "mergecg": _sub("mergecg"),
+    "epiread": main_epiread,
+    "asm": _sub("asm"),
+    "rectangle": _sub("rectangle"),
 }
 # subcommands of biscuit_tpu that the port does not have yet
-NOT_PORTED = ("vcf2bed", "mergecg", "epiread", "asm", "bsstrand", "bsconv",
-              "cinread", "qc", "bc", "rectangle", "tview")
+NOT_PORTED = ("bsstrand", "bsconv", "cinread", "qc", "bc", "tview")
 
 
 def main(argv=None):
@@ -775,6 +841,11 @@ Command:
     sort         Coordinate-sort SAM/BAM
     bamindex     Write a .bai index for a sorted BAM
     pileup       Pileup cytosines and mutations to VCF
+    vcf2bed      Convert VCF to BED tracks
+    mergecg      Merge the C and G of a CpG
+    epiread      Convert BAM to the epiBED format
+    rectangle    Convert old epiread format to a rectangular matrix
+    asm          Test allele-specific methylation
     version      Print the version
 
 Not ported yet: {", ".join(NOT_PORTED)}

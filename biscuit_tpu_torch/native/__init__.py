@@ -3,14 +3,17 @@
 Compiles lazily with g++ on first use; the shared object is cached in
 `_build/` next to the sources and rebuilt when a source is newer. This is
 host C++, not a device kernel: the suffix array and BWT of index
-construction (sais.cpp, bwt_merge.cpp) and the native align engine
+construction (sais.cpp, bwt_merge.cpp), the native align engine
 (align_host.cpp: seeding, chaining, extension and SAM for a batch of
-reads on C++ threads, with the seed injection of the hybrid engine).
+reads on C++ threads, with the seed injection of the hybrid engine), the
+pileup and epiread window engines over raw BAM records (pileup_native.cpp,
+whose text buffers bt_buf_free of align_host.cpp frees: one library) and
+the line filters of vcf2bed and mergecg (streams_native.cpp).
 
-Copy of biscuit_tpu/native/__init__.py for those three sources:
-`_declare` holds their functions (the source's table up to the end of its
-align_host.cpp block), and the PGO and sanitizer builds of the source are
-left out. The rest is the source's code; tests/test_torch_engine.py holds
+Copy of biscuit_tpu/native/__init__.py for those five sources: `_declare`
+is the source's whole table, and the PGO and sanitizer builds of the
+source are left out. No source includes zlib, so the source's -lz is not
+needed. The rest is the source's code; tests/test_torch_engine.py holds
 the copy to it.
 """
 import ctypes
@@ -135,6 +138,53 @@ def _declare(L: ctypes.CDLL) -> None:
         [P] +                          # inj
         [P, P, P])
     L.bt_align_pe_batch.restype = i32
+
+    # --- pileup_native.cpp ---
+    L.bt_bam_scan.argtypes = [P, i64, i64, P, P, P, P, i64]
+    L.bt_bam_scan.restype = i64
+    L.bt_pileup_window.argtypes = [P, P, P, i64, i64, i64, i32, P, i32,
+                                   P, P, P, P, P, P, P, P]
+    L.bt_pileup_window.restype = i32
+    L.bt_pileup_window_raw.argtypes = [P, P, P, i64, i64, i64, i32,
+                                       P, P, P, P, P, P, P, P]
+    L.bt_pileup_window_raw.restype = i32
+    L.bt_epiread_window_raw.argtypes = [
+        P, i32, i32, i32, i32, i32, i32,   # cf, nome, filt, maxlen, mode,
+                                           # print_all, have_snps
+        i32, f64,                          # use_modbam, modbam_prob
+        P, P, i64, i64, i64,               # chrom_name, chrom, seqlen,
+                                           # rs_beg, rs_end
+        i64, i64, i64, i64,                # beg, end, print_w_beg/end
+        P, i64, P, i64,                    # data, data_len, rec_offs, n_recs
+        P, P, i64,                         # snp_locs, snp_meth, n_snps
+        P, P]                              # out_buf, out_len
+    L.bt_epiread_window_raw.restype = i32
+
+    # --- streams_native.cpp ---
+    L.bt_stream_free.argtypes = [P]
+    L.bt_stream_free.restype = None
+    L.bt_vcf2bed_ctxt.argtypes = [ctypes.c_char_p, i64, i32, i32, i32,
+                                  ctypes.c_char_p, i32p, i32,
+                                  ctypes.POINTER(ctypes.c_int64)]
+    L.bt_vcf2bed_ctxt.restype = P
+    L.bt_mergecg_new.argtypes = [i32, i32, i32]
+    L.bt_mergecg_new.restype = P
+    L.bt_mergecg_set_ref.argtypes = [P, ctypes.c_char_p, ctypes.c_char_p, i64]
+    L.bt_mergecg_set_ref.restype = None
+    L.bt_mergecg_feed.argtypes = [P, ctypes.c_char_p, i64]
+    L.bt_mergecg_feed.restype = i64
+    L.bt_mergecg_need_chrom.argtypes = [P]
+    L.bt_mergecg_need_chrom.restype = ctypes.c_char_p
+    L.bt_mergecg_error.argtypes = [P]
+    L.bt_mergecg_error.restype = i32
+    L.bt_mergecg_errmsg.argtypes = [P]
+    L.bt_mergecg_errmsg.restype = ctypes.c_char_p
+    L.bt_mergecg_take_output.argtypes = [P, ctypes.POINTER(ctypes.c_int64)]
+    L.bt_mergecg_take_output.restype = P
+    L.bt_mergecg_finish.argtypes = [P]
+    L.bt_mergecg_finish.restype = None
+    L.bt_mergecg_free.argtypes = [P]
+    L.bt_mergecg_free.restype = None
 
 
 def _sa_alloc(n: int, dtype) -> np.ndarray:

@@ -6,18 +6,22 @@ ambiguity redistribution, VCF emission, and the _meth_average.tsv side
 statistics. Sequential window loop here (ordered by construction); the
 genome-axis sharded device path plugs in per-window.
 
-Copy of biscuit_tpu/pileup/engine.py with the count matrices of the
-vectorized window path made on a torch device: `_pileup_window_fast` takes
-the device and always calls `_device_counts`, which makes the count
-matrices of a window in one call of the fused window count
-(ops/pileup_count.pileup_window_counts: a CUDA kernel on the card, its
-plain version on the CPU) over inputs staged in reused host buffers. That is the source's BISCUIT_TPU_PILEUP=device path
-made the only one; the switch, the numpy bincount branch, the sharded
-`_mesh_counts` and the C++ window engine (pileup/native.py) are left out.
-On a CUDA device `run_windows` takes the windows in order in the process
-that owns the card, since a CUDA context does not survive a fork; on the
-CPU it keeps the source's fork pool. The rest is the source's code;
-tests/test_torch_engine.py holds the copy to it.
+Copy of biscuit_tpu/pileup/engine.py with two engines for a non-verbose
+window, picked by the `device` argument where the source reads
+BISCUIT_TPU_PILEUP. `device` None is the `native` engine: the C++ window
+engine (pileup/native.py over native/pileup_native.cpp) on raw BAM records
+or on record objects, which uses no torch. A torch device is the `device`
+engine: `_pileup_window_fast` takes the device and always calls
+`_device_counts`, which makes the count matrices of a window in one call of
+the fused window count (ops/pileup_count.pileup_window_counts: a CUDA
+kernel on the card, its plain version on the CPU) over inputs staged in
+reused host buffers; that is the source's BISCUIT_TPU_PILEUP=device path.
+The numpy bincount branch and the sharded `_mesh_counts` are left out.
+`run_windows` takes the windows of the `device` engine on a CUDA device in
+order in the process that owns the card, since a CUDA context does not
+survive a fork; native windows, and windows on the CPU, go to the source's
+fork pool. The rest is the source's code; tests/test_torch_engine.py holds
+the copy to it.
 """
 import math
 import os
@@ -45,17 +49,20 @@ import torch
 
 from ..ops.pileup_count import CB, CM, DP, N_WORDS, pileup_window_counts
 
-# seconds of the vectorized path in this process since reset_stages() (the
-# windows a CPU fork pool's workers compute are counted in the workers and
-# never reach the parent: only the in-process path is covered): open
-# (the CLI's reading of the BAMs and the reference into memory), read decode
-# (BAM fetch, filters, per-read base extraction), count (datum arrays to the
-# device, the fused window count, counts back), emit (emit mask and
-# plp_format); with the windows that held data, their data, the VCF lines
-# and the chunks of data that the kernel counted in device memory for want
-# of room in its shared memory (none on the plain route)
-STAGES = {"open": 0.0, "decode": 0.0, "count": 0.0, "emit": 0.0, "windows": 0,
-          "data": 0, "sites": 0, "wide_chunks": 0}
+# seconds of the non-verbose windows in this process since reset_stages()
+# (the windows a fork pool's workers compute are counted in the workers and
+# never reach the parent: only the in-process path is covered): open (the
+# CLI's opening of the BAMs and the reference), read decode (BAM fetch,
+# filters, per-read base extraction), count (datum arrays to the device,
+# the fused window count, counts back), emit (emit mask and plp_format),
+# native (a window of the C++ engine, decode to VCF text); with the windows
+# that held data (the C++ engine: every window it ran), their data (device
+# engine), the VCF lines and the chunks of data that the kernel counted in
+# device memory for want of room in its shared memory (none on the plain
+# route)
+STAGES = {"open": 0.0, "decode": 0.0, "count": 0.0, "emit": 0.0,
+          "native": 0.0, "windows": 0, "data": 0, "sites": 0,
+          "wide_chunks": 0}
 _COUNT_SPAN = None  # (entered, left) _device_counts in the current window
 
 
@@ -371,15 +378,30 @@ def pileup_window(bams: List[AlignmentFile], rs: RefCache, conf: PileupConf,
                   tid: int, chrm: str, beg: int, end: int,
                   betasum_context, cnt_context, device) -> str:
     """process one [beg, end) window (1-based beg, exclusive end) — the body
-    of process_func (pileup.c:675-853). Dispatches to the vectorized path
-    with its count matrices made on `device`, or to the per-datum path
-    (verbose mode needs per-base diagnostic records)."""
+    of process_func (pileup.c:675-853). Dispatches to the C++ window engine
+    when `device` is None (raw BAM records when `bams` are raw sources, else
+    record objects), to the vectorized path with its count matrices made on
+    `device`, or to the per-datum path (verbose mode needs per-base
+    diagnostic records)."""
     global _COUNT_SPAN
     if conf.comm.verbose:
         return _pileup_window_slow(bams, rs, conf, tid, chrm, beg, end,
                                    betasum_context, cnt_context)
-    _COUNT_SPAN = None
     t0 = time.perf_counter()
+    if device is None:
+        from .native import (RawBamBase, pileup_window_native,
+                             pileup_window_native_raw)
+        if bams and isinstance(bams[0], RawBamBase):
+            text = pileup_window_native_raw(bams, rs, conf, tid, chrm, beg,
+                                            end, betasum_context, cnt_context)
+        else:
+            text = pileup_window_native(bams, rs, conf, tid, chrm, beg, end,
+                                        betasum_context, cnt_context)
+        STAGES["native"] += time.perf_counter() - t0
+        STAGES["windows"] += 1
+        STAGES["sites"] += text.count("\n")
+        return text
+    _COUNT_SPAN = None
     text = _pileup_window_fast(bams, rs, conf, tid, chrm, beg, end,
                                betasum_context, cnt_context, device)
     t1 = time.perf_counter()
@@ -699,11 +721,13 @@ def _pileup_window_slow(bams: List[AlignmentFile], rs: RefCache, conf: PileupCon
 
 # ---- window execution (bisc_threads_t equivalent) -------------------------
 # The reference runs windows on a thread pool (pileup.c process/wqueue,
-# default 3 threads) and writes results back in window order. On the CPU we
-# fork worker processes sharing the parent's in-memory BAM/reference via
+# default 3 threads) and writes results back in window order. We fork
+# worker processes sharing the parent's in-memory BAM/reference via
 # copy-on-write and stream results back in submission order. A CUDA context
-# does not survive a fork, so on a CUDA device the windows run in order in
-# the one process that owns the card; the output is the same either way.
+# does not survive a fork, so the windows of the device engine on a CUDA
+# device run in order in the one process that owns the card; a window of the
+# C++ engine (device None) uses no torch, so its workers fork from a process
+# with a CUDA context as well. The output is the same either way.
 _POOL_G = None
 
 
@@ -722,10 +746,11 @@ def _pool_window1(job):
 
 def run_windows(bams, rs, conf, windows, n_procs, device):
     """Yield (window, text, bs, cs) for each (tid, name, beg, end) window, in
-    order: computed by a fork pool of n_procs workers on the CPU when
-    n_procs > 1, else one after the other in this process."""
+    order: computed by a fork pool of n_procs workers when n_procs > 1 and
+    the windows run on the C++ engine (device None) or on the CPU, else one
+    after the other in this process."""
     global _POOL_G
-    if device.type != "cpu" or n_procs <= 1:
+    if (device is not None and device.type != "cpu") or n_procs <= 1:
         for w in windows:
             yield (w, *_window1(bams, rs, conf, device, w))
         return

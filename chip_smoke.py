@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_TREE   (no check: `align` (the
-        device-jax engine) and `pileup` of this tree and of another checkout
+        device-jax engine) and `pileup` (the device engine) of this tree
+        and of another checkout
         side by side on the data of phases 4, 4b and 6, and K6's and K4's
         launches of both trees on the same inputs)
 
 Phases, one line each (more for the kernel table):
   1. the card: nvidia-smi name and power limit, compute capability
   2. build the seven CUDA sources of the align and pileup slices with nvcc,
-     and the native library (g++: align_host.cpp, sais.cpp, bwt_merge.cpp),
-     in parallel; registers, spills and shared memory of each kernel from
+     and the native library (g++: align_host.cpp, sais.cpp, bwt_merge.cpp,
+     pileup_native.cpp, streams_native.cpp), in parallel; registers,
+     spills and shared memory of each kernel from
      ptxas, warps resident an SM from the occupancy calculator
   3. each kernel against its plain torch version on the card, on
      numpy-seeded inputs or the phase-4 reads at the shapes of its path:
@@ -95,16 +97,44 @@ Phases, one line each (more for the kernel table):
      and the native engine on its 40,000 reads at -@ 1, both at -@
      os.cpu_count(), each beside its set-up; SAM equal to device-jax's
   6. the pileup slice end to end: a 200 kbp genome at 30x (40,000 directional
-     WGBS reads of 150 bp with SNPs), aligned by the port's `align` on the
+     WGBS reads of 150 bp of a diploid sample: half from a haplotype with
+     SNPs, half from the reference), aligned by the port's `align` on the
      card, sorted to BAM by its `sort`, then its `pileup` through the CLI on
-     the card with the default 100,000 bp window step, so that full-size
+     the card under the device engine (BISCUIT_TPU_TORCH_PILEUP=device) with
+     the default 100,000 bp window step, so that full-size
      windows of about 3 x 10^6 data reach K9; the VCF must equal, without
      its ##program line, the VCF of the same CLI in a process of its own on
      the CPU (plain counts), K9's fused entry must have launched once a
      window that held data (its general entry never), and the VCF must hold
      methylation lines and ALT alleles. Then
-     the same pileup once more and once under torch.profiler: stage seconds
+     the same pileup once more under the CLI's default engine (the switch
+     unset), which must be the device engine with the same launches and
+     VCF, and once under torch.profiler: stage seconds
      of each run, the card's busy time and idle share, device time by name
+  6b. the native pileup engine (the C++ window engine) on phase 6's BAM in
+     this process, after K9's launches: with a .bai (RawBamStream) and
+     without (RawBam) at -@ 1 and -@ os.cpu_count() (its fork pool), twice
+     each, so in 20 windows of 10 kbp (-s 10000), those with the .bai
+     again in a process of its own (no CUDA context) and there also in 100
+     windows (-s 2000), on the SAM (record
+     objects), and on a -g region across a window boundary beside the
+     device engine on it; each VCF (without ##program)
+     and _meth_average.tsv must equal the device engine's byte for byte,
+     and no kernel may launch in a native run; sites/s and bp/s of each run
+     with its stage seconds; what a fork pool costs here and in a process
+     of its own; the rule of PERF.md (is native faster than the device
+     engine by more than the spread, in 20 windows at -@ os.cpu_count()?)
+     applied and its answer printed beside the default, `device`
+  6c. the subcommands downstream of pileup on phase 6's outputs: vcf2bed
+     (-t cg, c, snp; hcg, gch on a -N VCF) and mergecg on the C++ line
+     filters and on the Python walk (BISCUIT_TPU_TORCH_STREAMS=python);
+     epiread (epiBED, -B with the SNP bed, -P, -O; on chr1) on the C++
+     raw-BAM engine and the Python walk at -@ 1 and -@ os.cpu_count(): the two paths' and
+     both thread counts' outputs must be the same bytes, no kernel may
+     launch; the raw engine again in a process of its own, on chr1 and on
+     the whole BAM in 20 and 100 windows, at both thread counts;
+     rectangle on chr1's -O epireads and asm on the -P epireads
+     must give well-formed rows; lines/s of each run
   5. (last) neither jax nor any module of the JAX package was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
@@ -130,6 +160,8 @@ LONG_JOIN, LONG_S = 54, 1024
 # phase 6: 2 chromosomes of 100 kbp at 30x, so two full 100 kbp windows
 PLP_GENOME, PLP_READS = 200_000, 40_000
 PLP_WINDOW, PLP_DATA = 100_000, 3_000_000   # K9's shape on that path
+# phase 6c: rectangle and asm on the epireads of chr1's first 10 kbp
+RECT_SPAN = 10_000
 # phase 4c: reads wider than the DP kernels' widest strip (512 columns), SE
 # and as mate 1
 WIDE_LEN, N_WIDE, N_WIDE_PAIRS = 640, 128, 64
@@ -192,6 +224,23 @@ def bound(n_bytes: float, n_ops: float):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _nothing(_):
+    return None
+
+
+def fork_pool_cost(n: int):
+    """(seconds, resident bytes): a fork pool of n workers started, given one
+    empty task each and joined, in this process, and this process's
+    resident set size when it forked."""
+    import multiprocessing
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    t = time.perf_counter()
+    with multiprocessing.get_context("fork").Pool(n) as pool:
+        pool.map(_nothing, range(n), chunksize=1)
+    return time.perf_counter() - t, rss
 
 
 def band_cells(qlens, tlens, w):
@@ -480,7 +529,7 @@ def align_ab(work: str, other: str) -> int:
     of the CLI's own `[M::mem_process_seqs] Processed ... real sec` line
     and of each pileup call. It checks only that the two K6 calls agree."""
     import re
-    from torch_testdata import damage_mates, make_dataset
+    from torch_testdata import damage_mates, diploid_dataset, make_dataset
     other = os.path.abspath(other)
     if not os.path.isdir(os.path.join(other, "biscuit_tpu_torch")):
         print(f"chip_smoke: no biscuit_tpu_torch in {other}", file=sys.stderr)
@@ -499,11 +548,14 @@ def align_ab(work: str, other: str) -> int:
     damage_mates(fq2, DAMAGE_EVERY)
     k4_shapes = k4_ab_inputs(work, fa, idx)
     pdir = os.path.join(work, "plp")
-    gfa, gfq, _ = make_dataset(pdir, genome_size=PLP_GENOME, n_reads=PLP_READS,
-                               read_len=READ_LEN, seed=SEED + 1, snp_rate=0.005)
+    gfa, gfq, _ = diploid_dataset(pdir, n_reads=PLP_READS, snp_rate=0.005,
+                                  genome_size=PLP_GENOME, read_len=READ_LEN,
+                                  seed=SEED + 1)
     gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
     from biscuit_tpu_torch import cli
     os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cuda"
+    # the pileup engine both trees have (a tree before the switch ignores it)
+    os.environ["BISCUIT_TPU_TORCH_PILEUP"] = "device"
     # the engine both trees have (a tree before the engine switch ignores it)
     os.environ["BISCUIT_TPU_TORCH_ENGINE"] = "device-jax"
     with open(gsam, "w") as f, contextlib.redirect_stdout(f):
@@ -612,6 +664,307 @@ def align_ab(work: str, other: str) -> int:
     return 0
 
 
+def phase_6b(work, card, pileup, vcf_lines, gfa, gsam, gbam, vcf_gpu,
+             n_sites, dev_walls):
+    """6b. the native pileup engine (the C++ window engine) on phase 6's BAM,
+    in the process that has launched K9: without and with a .bai (RawBam,
+    RawBamStream), at -@ 1 and -@ os.cpu_count(), twice each, and so in 20
+    windows of 10 kbp (-s 10000) with the .bai, then those with the .bai
+    again in a process of its own (no CUDA context); on the SAM (the object
+    path); on a -g region across a window boundary beside the device
+    engine on the same region. Every VCF (without ##program) and
+    _meth_average.tsv must be the device engine's of phase 6 (the SAM's with
+    its sample named after the SAM), no kernel may launch in a native run,
+    and the -@ os.cpu_count() runs must fork their pool. Then the rule that
+    picks the default engine, and 6c on the outputs."""
+    from biscuit_tpu_torch import cli
+    t_phase = time.perf_counter()
+    ncpu = os.cpu_count()
+    want = vcf_lines(vcf_gpu)
+    with open(vcf_gpu + "_meth_average.tsv") as f:
+        want_tsv = f.read()
+    out = os.path.join(os.path.dirname(gbam), "native.vcf")
+
+    def check(tag, wall, launches, st, pools, raws, threads, kind,
+              vcf=None, tsv=None):
+        got = vcf_lines(out)
+        with open(out + "_meth_average.tsv") as f:
+            got_tsv = f.read()
+        if got != (vcf or want) or got_tsv != (tsv or want_tsv):
+            raise AssertionError(f"6b {tag}: the native VCF or tsv differs "
+                                 f"from the device engine's")
+        if any(launches.values()):
+            raise AssertionError(f"6b {tag}: a native run launched {launches}")
+        if pools != (["fork"] if threads > 1 else []) or raws != kind:
+            raise AssertionError(f"6b {tag}: pools {pools}, sources {raws}")
+        if threads == 1 and (st["windows"] < 1 or st["native"] <= 0
+                             or st["sites"] != len(got) - sum(
+                                 ln[0] == "#" for ln in got)):
+            raise AssertionError(f"6b {tag}: stages {st}")
+        stages = {k: round(v, 3) for k, v in st.items()
+                  if k in ("open", "native") or (k in ("windows", "sites")
+                                                 and threads == 1)}
+        say(f"[6b] native, {tag}: {wall:.3f} s, {n_sites / wall:.1f} sites/s, "
+            f"{PLP_GENOME / wall:.1f} bp/s; stages {json.dumps(stages)}; "
+            f"VCF and tsv == the device engine's, no launch [{card}]")
+        return wall
+
+    walls = {}
+    if cli.main(["bamindex", gbam]) != 0:
+        raise AssertionError("bamindex failed")
+    for bai in (True, False):
+        if not bai:   # the same path (the tsv names it), no .bai beside it
+            os.rename(gbam + ".bai", gbam + ".bai.off")
+        kind = "RawBamStream" if bai else "RawBam"
+        for threads in (1, ncpu):
+            for _ in range(2):
+                walls.setdefault((bai, threads), []).append(check(
+                    f"{'with' if bai else 'without'} a .bai ({kind}), -@ "
+                    f"{threads}",
+                    *pileup("native", ["-@", str(threads)], out=out),
+                    threads, [kind]))
+    os.rename(gbam + ".bai.off", gbam + ".bai")
+    # 20 windows of 10 kbp: the fork pool with work to share (2 windows of
+    # 100 kbp leave it 2 workers); the same VCF and tsv
+    for threads in (1, ncpu):
+        for _ in range(2):
+            walls.setdefault(("s10000", threads), []).append(check(
+                f"-s 10000 (20 windows), with a .bai, -@ {threads}",
+                *pileup("native", ["-s", "10000", "-@", str(threads)],
+                        out=out), threads, ["RawBamStream"]))
+    # the same runs in a process of its own, as a user runs the CLI: no CUDA
+    # context and none of this process's memory to copy into each fork
+    alone = [(*o, "-@", str(t)) for o in ((), ("-s", "10000"), ("-s", "2000"))
+             for t in (1, ncpu) for _ in range(2)]
+    code = ("import json, time, torch\n"
+            "from chip_smoke import fork_pool_cost\n"
+            "from biscuit_tpu_torch import cli\n"
+            "walls = []\n"
+            f"for k, opts in enumerate({alone!r}):\n"
+            "    t = time.perf_counter()\n"
+            f"    assert cli.main(['pileup', *opts, '-o', {out!r} + str(k), "
+            f"{gfa!r}, {gbam!r}]) == 0\n"
+            "    walls.append(time.perf_counter() - t)\n"
+            f"print(json.dumps([walls, torch.cuda.is_initialized(), "
+            f"fork_pool_cost({ncpu})]))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=dict(os.environ, BISCUIT_TPU_TORCH_PILEUP="native"),
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"6b in a process of its own: {r.stderr[-2000:]}")
+    alone_walls, cuda_init, fork_alone = json.loads(r.stdout.splitlines()[-1])
+    for k in range(len(alone)):
+        with open(out + str(k) + "_meth_average.tsv") as f:
+            if vcf_lines(out + str(k)) != want or f.read() != want_tsv:
+                raise AssertionError(f"6b {alone[k]} in a process of its "
+                                     f"own: the VCF or tsv differs")
+    if cuda_init:
+        raise AssertionError("6b: the native CLI made a CUDA context")
+    say("[6b] native in a process of its own (cli.main timed inside it, no "
+        "CUDA context), VCF and tsv == the device engine's: " + "; ".join(
+            f"{' '.join(o)}: {w:.3f} s, {n_sites / w:.1f} sites/s"
+            for o, w in zip(alone, alone_walls)) + f" [{card}]")
+    # what a fork pool of -@ os.cpu_count() workers costs before any window:
+    # here (the card's context, the earlier phases' data) and there
+    fork_here = fork_pool_cost(ncpu)
+    say(f"[6b] a fork pool of {ncpu} workers, started, given one empty task "
+        f"each and joined: {fork_here[0]:.3f} s in this process (RSS "
+        f"{fork_here[1] / 2**20:.0f} MiB), {fork_alone[0]:.3f} s in a process "
+        f"of its own (RSS {fork_alone[1] / 2**20:.0f} MiB) [{card}]")
+    # the SAM: record objects through pileup_window_native; the VCF names
+    # its sample after the file, the tsv by its path
+    sam_vcf = [ln.replace("\taln\n", "\taln.sam\n") if ln[:6] == "#CHROM"
+               else ln for ln in want]
+    check("the SAM (record objects), -@ 1",
+          *pileup("native", ["-@", "1"], [gsam], out), 1, [],
+          sam_vcf, want_tsv.replace(gbam + "\t", gsam + "\t"))
+    # a region across a window boundary, beside the device engine on it
+    region = ["-g", "chr1:40000-60000", "-s", "10000", "-@", "1"]
+    rvcf = os.path.join(os.path.dirname(gbam), "region.vcf")
+    _w, rl, rst, _p, _r = pileup("device", region, out=rvcf)
+    if rl.get("pileup_window_counts", 0) != 2 or rst["windows"] != 2:
+        raise AssertionError(f"6b region: device launches {rl}, stages {rst}")
+    with open(rvcf + "_meth_average.tsv") as f:
+        rtsv = f.read()
+    check("-g chr1:40000-60000 -s 10000 (2 windows), -@ 1",
+          *pileup("native", region, out=out), 1, ["RawBamStream"],
+          vcf_lines(rvcf), rtsv)
+    say(f"[6b] the device engine on that region: {len(vcf_lines(rvcf))} VCF "
+        f"lines, 2 launches of K9's fused entry")
+
+    # the rule written before the run (PERF.md section 6): is `native`
+    # faster, its sites/s at -@ os.cpu_count() (with a .bai, what
+    # raw_bam_open takes where one lies; in 20 windows, so that the pool has
+    # work to share) above the device engine's in each of two runs by more
+    # than the two runs' spread? It measures the device engine's gap; the
+    # default stays `device`, the engine that runs on the card (phase 6
+    # holds that the switch unset launches K9 once a window)
+    nat = [n_sites / w for w in walls["s10000", ncpu]]
+    dev = [n_sites / w for w in dev_walls]
+    spread = max(abs(nat[0] - nat[1]), abs(dev[0] - dev[1]))
+    faster = "native" if min(nat) - max(dev) > spread else "neither"
+    say(f"[6b] the rule: native, 20 windows at -@ {ncpu}, "
+        f"{', '.join(f'{x:.1f}' for x in nat)} sites/s against the device "
+        f"engine's {', '.join(f'{x:.1f}' for x in dev)} (phase 6's first two "
+        f"runs), spread {spread:.1f}: faster by more than the spread: "
+        f"{faster}; the CLI's default: {cli.PILEUP_DEFAULT} [{card}]")
+    say(f"[6b] {time.perf_counter() - t_phase:.1f} s")
+    phase_6c(work, card, pileup, gfa, gbam, vcf_gpu)
+
+
+def phase_6c(work, card, pileup, gfa, gbam, vcf):
+    """6c. the subcommands downstream of pileup on phase 6's outputs, each
+    through the CLI in this process: vcf2bed (-t cg, c, snp, and hcg, gch
+    on a -N VCF) and mergecg on its C++ line filters and on its Python walk
+    (BISCUIT_TPU_TORCH_STREAMS=python); epiread (epiBED, -B with the SNP
+    bed, -P -B, -O; -g chr1, half the BAM, in four windows: the Python walk
+    takes about 7 s a run there at -@ 1) on the C++ raw-BAM engine and on
+    the Python walk, at -@ 1 and -@ os.cpu_count(); rectangle on the -O epireads of chr1's first
+    RECT_SPAN bp, and asm on the -P epireads whose SNP lies there, sorted by
+    SNP and CpG as asm asks (both are Python whose time grows with the
+    span: rectangle pads every row to the span's CpG columns). The outputs
+    of the two paths must be the same bytes, no kernel may launch, and
+    rectangle's and asm's rows must be well formed."""
+    from biscuit_tpu_torch import cli, kernels
+    t_phase = time.perf_counter()
+    ncpu = os.cpu_count()
+    d = os.path.join(work, "down")
+    os.makedirs(d, exist_ok=True)
+    nome = os.path.join(d, "nome.vcf")
+    pileup("native", ["-N"], out=nome)
+
+    def sub(tag, argv, out, **env):
+        """argv through the CLI, stdout into `out`, under `env`: its text."""
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with open(out, "w") as f, contextlib.redirect_stdout(f):
+                rc = cli.main(argv)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t0
+        if rc != 0 or any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"6c {tag}: exit {rc}, launches "
+                                 f"{dict(kernels.LAUNCHES)}")
+        with open(out) as f:
+            text = f.read()
+        n = text.count("\n")
+        say(f"[6c] {tag}: {n} lines in {wall:.3f} s, {n / wall:.1f} lines/s "
+            f"[{card}]")
+        return text
+
+    def both(tag, argv, name, switch, paths):
+        """argv on each of the two paths (values of `switch`): their output,
+        which must be the same bytes and not empty."""
+        texts = [sub(f"{tag}, {path}", argv, os.path.join(d, f"{name}.{path}"),
+                     **{switch: value}) for path, value in paths]
+        if texts[0] != texts[1] or not texts[0]:
+            raise AssertionError(f"6c {tag}: the two paths differ or are empty")
+        with open(os.path.join(d, name), "w") as f:
+            f.write(texts[0])
+        return texts[0]
+
+    streams = (("C++", "native"), ("Python", "python"))
+    for t, src in (("cg", vcf), ("c", vcf), ("snp", vcf), ("hcg", nome),
+                   ("gch", nome)):
+        both(f"vcf2bed -t {t}", ["vcf2bed", "-t", t, src], f"{t}.bed",
+             "BISCUIT_TPU_TORCH_STREAMS", streams)
+    merged = both("mergecg", ["mergecg", gfa, os.path.join(d, "cg.bed")],
+                  "cg.merged.bed", "BISCUIT_TPU_TORCH_STREAMS", streams)
+    if not any(ln.split("\t")[2] == str(int(ln.split("\t")[1]) + 2)
+               for ln in merged.splitlines()):
+        raise AssertionError("6c mergecg merged no CpG")
+    snp = os.path.join(d, "snp.bed")
+    paths = (("C++ raw", "native"), ("Python", "device"))
+    for name, opts in (("epibed", []), ("snp", ["-B", snp]),
+                       ("pairwise", ["-P", "-B", snp]), ("old", ["-O"])):
+        texts = {threads: both(f"epiread {' '.join(opts)} -@ {threads}",
+                               ["epiread", *opts, "-g", "chr1", "-s", "25000",
+                                "-@", str(threads), gfa, gbam],
+                               f"{name}.{threads}.epiread",
+                               "BISCUIT_TPU_TORCH_PILEUP", paths)
+                 for threads in (1, ncpu)}
+        if texts[1] != texts[ncpu]:
+            raise AssertionError(f"6c epiread {name}: -@ 1 and -@ {ncpu} "
+                                 f"differ")
+    # epiread's raw engine and its fork pool in a process of its own, as a
+    # user runs it (no CUDA context): chr1 in 4 windows as above, and the
+    # whole BAM in 20 and in 100 windows, at -@ 1 and -@ os.cpu_count(),
+    # twice each; each output that of -@ 1 (and on chr1 the one above)
+    alone = [(o, t) for o in (("-g", "chr1", "-s", "25000"), ("-s", "10000"),
+                              ("-s", "2000"))
+             for t in (1, ncpu) for _ in range(2)]
+    code = ("import contextlib, json, sys, time\n"
+            "from biscuit_tpu_torch import cli\n"
+            "walls = []\n"
+            f"for k, (opts, t) in enumerate({alone!r}):\n"
+            f"    with open({d!r} + f'/alone.{{k}}.epiread', 'w') as f, "
+            "contextlib.redirect_stdout(f):\n"
+            "        w = time.perf_counter()\n"
+            "        assert cli.main(['epiread', *opts, '-@', str(t), "
+            f"{gfa!r}, {gbam!r}]) == 0\n"
+            "        walls.append(time.perf_counter() - w)\n"
+            "print(json.dumps([walls, 'torch' in sys.modules]))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=dict(os.environ, BISCUIT_TPU_TORCH_PILEUP="native"),
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"6c epiread alone: {r.stderr[-2000:]}")
+    walls, torch_in = json.loads(r.stdout.splitlines()[-1])
+    outs = []
+    for k in range(len(alone)):
+        with open(os.path.join(d, f"alone.{k}.epiread")) as f:
+            outs.append(f.read())
+    with open(os.path.join(d, "epibed.1.epiread")) as f:
+        chr1 = f.read()
+    for k, (opts, _t) in enumerate(alone):
+        if outs[k] != (chr1 if k < 4 else outs[4 * (k // 4)]) or \
+                not outs[k] or torch_in:
+            raise AssertionError(f"6c epiread {opts} alone: the output "
+                                 f"differs, or torch was imported")
+    say("[6c] epiread (C++ raw) in a process of its own, outputs == -@ 1's: "
+        + "; ".join(f"{' '.join(o)} -@ {t}: {w:.3f} s, "
+                    f"{outs[k].count(chr(10)) / w:.1f} lines/s"
+                    for k, ((o, t), w) in enumerate(zip(alone, walls)))
+        + f" [{card}]")
+    def first_span(name, col, sort=False):
+        """The epireads of `name` on chr1 whose column `col` lies in the
+        first RECT_SPAN bp, in their order or sorted by that column and the
+        next."""
+        with open(os.path.join(d, name)) as f:
+            rows = [ln.split("\t") for ln in f]
+        rows = [r for r in rows if r[0] == "chr1" and int(r[col]) < RECT_SPAN]
+        if sort:
+            rows.sort(key=lambda r: (int(r[col]), int(r[col + 1])))
+        path = os.path.join(d, name + ".span")
+        with open(path, "w") as g:
+            g.writelines("\t".join(r) for r in rows)
+        return path
+
+    rect = sub(f"rectangle on the -O epireads of chr1:1-{RECT_SPAN}",
+               ["rectangle", gfa, first_span("old.1.epiread", 4)],
+               os.path.join(d, "rect.txt"))
+    rows = [ln.split("\t") for ln in rect.splitlines()]
+    if len(rows) < 1000 or {r[0] for r in rows} != {"chr1"} or \
+            len({len(r[-1]) for r in rows}) != 1:
+        raise AssertionError(f"6c rectangle: {len(rows)} rows, not one "
+                             f"matrix of chr1")
+    asm = sub(f"asm on the -P epireads of SNPs in chr1:1-{RECT_SPAN}",
+              ["asm", first_span("pairwise.1.epiread", 1, sort=True)],
+              os.path.join(d, "asm.txt"))
+    rows = [ln.split("\t") for ln in asm.splitlines()]
+    if len(rows) < 10 or any(len(r) != 11 or not 0 <= float(r[9]) <= 1
+                             for r in rows):
+        raise AssertionError(f"6c asm: {len(rows)} rows, or one malformed")
+    say(f"[6c] {time.perf_counter() - t_phase:.1f} s")
+
+
 def smoke(work: str) -> int:
     import numpy as np
     import torch
@@ -645,8 +998,9 @@ def smoke(work: str) -> int:
     say(f"[2] built {sorted(kernels.BUILD_SECONDS) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s; per source "
         f"{json.dumps({k: round(v, 2) for k, v in kernels.BUILD_SECONDS.items()})}")
-    say(f"[2] native library (g++, align_host.cpp with sais.cpp and "
-        f"bwt_merge.cpp): {native_build_s:.1f} s (0: cached)")
+    say(f"[2] native library (g++, align_host.cpp with sais.cpp, "
+        f"bwt_merge.cpp, pileup_native.cpp and streams_native.cpp): "
+        f"{native_build_s:.1f} s (0: cached)")
 
     for src in sorted(kernels.BUILD_RESOURCES):
         for kern, regs, st, ld, smem in kernels.BUILD_RESOURCES[src]:
@@ -2094,11 +2448,14 @@ def smoke(work: str) -> int:
     from biscuit_tpu_torch.pileup import engine as plp_engine
     t0 = time.perf_counter()
     pdir = os.path.join(work, "plp")
-    gfa, gfq, _ = make_dataset(pdir, genome_size=PLP_GENOME, n_reads=PLP_READS,
-                               read_len=READ_LEN, seed=SEED + 1, snp_rate=0.005)
+    from torch_testdata import diploid_dataset
+    gfa, gfq, _ = diploid_dataset(pdir, n_reads=PLP_READS, snp_rate=0.005,
+                                  genome_size=PLP_GENOME, read_len=READ_LEN,
+                                  seed=SEED + 1)
     say(f"[6] data: {PLP_GENOME} bp genome, {PLP_READS} x {READ_LEN} bp reads "
-        f"({PLP_READS * READ_LEN / PLP_GENOME:.0f}x), index built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"({PLP_READS * READ_LEN / PLP_GENOME:.0f}x) of a diploid sample (half "
+        f"from a haplotype with SNPs at 0.5%, half from the reference), index "
+        f"built in {time.perf_counter() - t0:.1f} s")
     gsam, gbam = os.path.join(pdir, "aln.sam"), os.path.join(pdir, "aln.bam")
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -2147,28 +2504,51 @@ def smoke(work: str) -> int:
             f"{split}; SAM == device-jax's [{card}]")
 
     vcf_gpu, vcf_cpu = (os.path.join(pdir, n) for n in ("gpu.vcf", "cpu.vcf"))
+    import multiprocessing
+    from biscuit_tpu_torch.pileup import native as plp_native
 
-    def pileup():
-        """The CLI on the card, every count set to 0 just before it and read
-        just after: (wall s, launches, stages)."""
+    def pileup(engine="device", opts=(), inputs=(gbam,), out=vcf_gpu):
+        """The CLI's pileup under BISCUIT_TPU_TORCH_PILEUP=engine (None: the
+        switch unset, the CLI's default), every count set to 0 just before
+        it and read just after: (wall s, launches, stages, the fork pools it
+        made, the raw BAM sources it opened)."""
         gc.collect()
         torch.cuda.synchronize()
         kernels.reset_launches()
         plp_engine.reset_stages()
+        pools, raws = [], []
+        get_context, raw_open = multiprocessing.get_context, \
+            plp_native.raw_bam_open
+        multiprocessing.get_context = lambda m=None: pools.append(m) or \
+            get_context(m)
+        plp_native.raw_bam_open = lambda fn: raws.append(raw_open(fn)) or \
+            raws[-1]
+        saved = os.environ.pop("BISCUIT_TPU_TORCH_PILEUP", None)
+        if engine is not None:
+            os.environ["BISCUIT_TPU_TORCH_PILEUP"] = engine
         t0 = time.perf_counter()
-        rc = cli.main(["pileup", "-o", vcf_gpu, gfa, gbam])
-        torch.cuda.synchronize()
+        try:
+            rc = cli.main(["pileup", *opts, "-o", out, gfa, *inputs])
+            torch.cuda.synchronize()
+        finally:
+            multiprocessing.get_context = get_context
+            plp_native.raw_bam_open = raw_open
+            os.environ.pop("BISCUIT_TPU_TORCH_PILEUP", None)
+            if saved is not None:
+                os.environ["BISCUIT_TPU_TORCH_PILEUP"] = saved
         wall = time.perf_counter() - t0
         if rc != 0:
-            raise AssertionError(f"pileup exited {rc}")
-        return wall, dict(kernels.LAUNCHES), dict(plp_engine.STAGES)
+            raise AssertionError(f"pileup {engine} {opts} exited {rc}")
+        return (wall, dict(kernels.LAUNCHES), dict(plp_engine.STAGES), pools,
+                [type(r).__name__ for r in raws])
 
-    t_plp, klaunch, st = pileup()
+    t_plp, klaunch, st, _p, _r = pileup()
     # the same CLI in a process of its own on the CPU: the plain counts
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli", "pileup",
                         "-o", vcf_cpu, gfa, gbam], cwd=REPO,
-                       env=dict(os.environ, BISCUIT_TPU_TORCH_DEVICE="cpu"),
+                       env=dict(os.environ, BISCUIT_TPU_TORCH_DEVICE="cpu",
+                                BISCUIT_TPU_TORCH_PILEUP="device"),
                        capture_output=True, text=True)
     t_cpu = time.perf_counter() - t0
     if r.returncode != 0:
@@ -2231,13 +2611,23 @@ def smoke(work: str) -> int:
         say(f"[6] {tag}: wall {wall:.3f} s, {st['sites'] / wall:.1f} sites/s; "
             f"stages {json.dumps(st)} [{card}]")
 
-    wall, _launches, st2 = pileup()
-    say_run("second run", wall, st2)
+    # the second run under the CLI's default engine, which must be the
+    # device engine: K9's fused entry once a window, the same VCF
+    t_plp2, launches2, st2, _p, _r = pileup(None)
+    if cli.PILEUP_DEFAULT != "device" or vcf_lines(vcf_gpu) != want or \
+            st2["windows"] != n_windows or \
+            launches2.get("pileup_window_counts", 0) != n_windows:
+        raise AssertionError(f"the default pileup engine "
+                             f"{cli.PILEUP_DEFAULT}: launches {launches2}, "
+                             f"stages {st2}, or its VCF differs")
+    say_run("second run, the default engine (switch unset)", t_plp2, st2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _launches, st2 = pileup()
+        wall, _launches, st2, _p, _r = pileup()
     say_run("profiled run", wall, st2)
     say_busy("6", prof, wall, "pileup_count")
+    phase_6b(work, card, pileup, vcf_lines, gfa, gsam, gbam, vcf_gpu,
+             len(sites), [t_plp, t_plp2])
 
     # 5. neither jax nor the JAX package was imported
     theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")

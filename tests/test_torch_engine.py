@@ -461,12 +461,32 @@ class _NoArgs(ast.NodeTransformer):
         return node
 
 
-def _code(path, drop=(), args=()):
+class _Renamed(ast.NodeTransformer):
+    """Replaces each string constant that is a key of `names` by its value."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str) and node.value in self.names:
+            node.value = self.names[node.value]
+        return node
+
+
+# the port's own environment switches, where its copies read the JAX
+# package's: a CLI run of either package never steers the other
+SWITCHES = {"BISCUIT_TPU_STREAMS": "BISCUIT_TPU_TORCH_STREAMS",
+            "BISCUIT_TPU_PILEUP": "BISCUIT_TPU_TORCH_PILEUP"}
+
+
+def _code(path, drop=(), args=(), renamed=()):
     """Module body as AST dumps, without the docstring, any import
     statement, the top-level names in `drop` and the parameters and
-    keyword arguments named in `args`."""
+    keyword arguments named in `args`, with the switches named in
+    `renamed` read as the port's (SWITCHES)."""
     with open(path) as f:
         tree = _NoArgs(args).visit(_NoImports().visit(ast.parse(f.read())))
+    tree = _Renamed({k: SWITCHES[k] for k in renamed}).visit(tree)
     out = []
     for i, node in enumerate(tree.body):
         if i == 0 and isinstance(node, ast.Expr):
@@ -484,8 +504,9 @@ def _code(path, drop=(), args=()):
 
 # every module the port copied from the JAX package: id -> (path inside
 # either package, top-level names left out of the comparison[, parameters
-# and keyword arguments left out of it]). What is left out is what the copy
-# deliberately changes or does not carry.
+# and keyword arguments left out of it[, the environment switches it reads
+# under the port's name (SWITCHES)]]). What is left out or renamed is what
+# the copy deliberately changes or does not carry.
 _ALIGN = {n: (f"align/{n}.py", ()) for n in ("trace", "smem", "region",
                                              "pair")}
 COPIES = {
@@ -505,9 +526,10 @@ COPIES = {
     # bisindex_from_numpy is the port's addition
     "index/fmindex": ("index/fmindex.py", ("bisindex_from_numpy",)),
     "index/build": ("index/build.py", ()),
-    # the loader of sais.cpp, bwt_merge.cpp and align_host.cpp: no PGO or
-    # sanitizer build (one build at a time under a lock, _stale, which
-    # lib also asks), and _declare holds the three sources' functions
+    # the loader of sais.cpp, bwt_merge.cpp, align_host.cpp,
+    # pileup_native.cpp and streams_native.cpp: no PGO or sanitizer build
+    # (one build at a time under a lock, _stale, which lib also asks), no
+    # -lz; _declare is the source's whole table
     # (test_native_declare_is_a_prefix_of_the_source)
     "native": ("native/__init__.py", (
         "_SAN", "_SO", "_PGO_DIR", "_PGO_STAMP", "_PGO_SO_MARK", "_src_stamp",
@@ -523,34 +545,48 @@ COPIES = {
     "align/io_helpers": ("align/io_helpers.py", ()),
     "pileup/stats": ("pileup/stats.py", ()),
     "pileup/common": ("pileup/common.py", ()),
-    # the counts come from the port's fused window count on a torch device
-    # over reused staging buffers
-    # (test_pileup_window_fast_differs_only_in_its_counts): no mode switch,
-    # no sharded counts, no C++ window engine; windows run in-process on a
-    # CUDA device; stage timers
+    # the engine is picked by the `device` argument (None: the C++ window
+    # engine of pileup/native.py, as the source's default; a torch device:
+    # the counts from the port's fused window count over reused staging
+    # buffers, test_pileup_window_fast_differs_only_in_its_counts), not by
+    # BISCUIT_TPU_PILEUP; no numpy bincount branch, no sharded counts; the
+    # device engine's windows run in-process on a CUDA device, and native
+    # windows in the fork pool on any device (run_windows, the source's
+    # run_windows_pooled); stage timers
     "pileup/engine": ("pileup/engine.py", (
         "pileup_window", "_pileup_window_fast", "_device_counts",
         "_mesh_counts", "_MESH_FNS", "_pool_window1", "run_windows_pooled",
         "_window1", "run_windows", "STAGES", "_COUNT_SPAN", "reset_stages",
         "_STAGING", "_staged", "_CODE_OF_STAT")),
+    "pileup/native": ("pileup/native.py", ()),
+    "io/vcf": ("io/vcf.py", ()),
+    "subcmds/vcf2bed": ("subcmds/vcf2bed.py", (), (), ("BISCUIT_TPU_STREAMS",)),
+    "subcmds/mergecg": ("subcmds/mergecg.py", (), (), ("BISCUIT_TPU_STREAMS",)),
+    "subcmds/epiread": ("subcmds/epiread.py", (), (), ("BISCUIT_TPU_PILEUP",)),
+    "subcmds/rectangle": ("subcmds/rectangle.py", ()),
+    "subcmds/asm": ("subcmds/asm.py", ()),
 }
 
 
 @pytest.mark.parametrize("name", list(COPIES))
 def test_copied_module_matches_source(name):
-    rel, drop, *args = COPIES[name]
-    args = args[0] if args else ()
+    rel, drop, args, renamed = (COPIES[name] + ((), ()))[:4]
     src = os.path.join(REPO, "biscuit_tpu", rel)
     dst = os.path.join(REPO, "biscuit_tpu_torch", rel)
-    assert _code(dst, drop, args) == _code(src, drop, args)
+    assert _code(dst, drop, args) == _code(src, drop, args, renamed)
+    # a renamed switch is read under the port's name, never the source's
+    for k in renamed:
+        assert _code(dst) != _code(src) and repr(k) not in str(_code(dst))
 
 
 @pytest.mark.parametrize("name", ["sais.cpp", "bwt_merge.cpp",
-                                  "align_host.cpp"])
+                                  "align_host.cpp", "pileup_native.cpp",
+                                  "streams_native.cpp"])
 def test_copied_native_source_matches(name):
-    """The C++ sources of the index construction and of the native align
-    engine are their sources' code: every line that is not a // comment is
-    the same."""
+    """The C++ sources of the index construction, of the native align
+    engine, of the pileup and epiread window engines and of the vcf2bed and
+    mergecg line filters are their sources' code: every line that is not a
+    // comment is the same."""
     def code(pkg):
         with open(os.path.join(REPO, pkg, "native", name)) as f:
             return [ln for ln in f if not ln.lstrip().startswith("//")]
@@ -572,14 +608,14 @@ def _function(rel, pkg, name):
 
 
 def test_native_declare_is_a_prefix_of_the_source():
-    """The port's _declare is the source's up to the last function of
-    sais.cpp, bwt_merge.cpp and align_host.cpp."""
+    """The port's _declare is the source's whole table: the functions of
+    sais.cpp, bwt_merge.cpp, align_host.cpp, pileup_native.cpp and
+    streams_native.cpp, in the source's order, with its argtypes."""
     mine = _function("native/__init__.py", "biscuit_tpu_torch", "_declare").body
     theirs = _function("native/__init__.py", "biscuit_tpu", "_declare").body
-    assert len(mine) >= 40
-    assert ast.unparse(mine[-1]) == "L.bt_align_pe_batch.restype = i32"
-    assert [ast.dump(n) for n in mine] == \
-        [ast.dump(n) for n in theirs[:len(mine)]]
+    assert len(mine) >= 70
+    assert ast.unparse(mine[-1]) == "L.bt_mergecg_free.restype = None"
+    assert [ast.dump(n) for n in mine] == [ast.dump(n) for n in theirs]
 
 
 def test_pileup_window_fast_differs_only_in_its_counts():
@@ -696,10 +732,12 @@ def test_bisindex_from_numpy_carries_every_field(data):
     _same_index(again, idx.jax)
 
 
-@pytest.mark.parametrize("name", ["qc", "epiread", "vcf2bed", "nonsense"])
+@pytest.mark.parametrize("name", ["qc", "bsconv", "tview", "nonsense"])
 def test_cli_answers_other_subcommands_with_not_ported(name):
     from biscuit_tpu_torch import cli
     assert name not in cli.SUBCOMMANDS
+    assert cli.NOT_PORTED == ("bsstrand", "bsconv", "cinread", "qc", "bc",
+                              "tview")
     r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli", name],
                        cwd=REPO, env=_env(), capture_output=True, text=True,
                        timeout=120)

@@ -4,10 +4,11 @@ the CPU.
 K9, the window count scatter-add: the port's plain version must equal the
 JAX function `pileup_count_window` (XLA on the CPU) exactly, and the port's
 `_device_counts` the JAX package's and the numpy bincount branch of its
-engine on a real window. The slice as a whole: the port's `pileup` CLI must
-write the VCF (apart from the `##program` line, which holds the command
-line) and the `_meth_average.tsv` that `python -m biscuit_tpu.cli pileup`
-writes under BISCUIT_TPU_PILEUP=numpy and =device; its `sort` and `bamindex`
+engine on a real window. The slice as a whole: the port's `pileup` CLI under
+its `device` engine (BISCUIT_TPU_TORCH_PILEUP=device) must write the VCF
+(apart from the `##program` line, which holds the command line) and the
+`_meth_average.tsv` that `python -m biscuit_tpu.cli pileup` writes under
+BISCUIT_TPU_PILEUP=numpy and =device; its `sort` and `bamindex`
 the same BAM and .bai; and its subprocess imports neither jax nor the JAX
 package. The data come from tools/make_testdata.py and the port's own
 `index`, `align` and `sort`.
@@ -315,7 +316,9 @@ def _pileup(pkg, mode, config, bam, tmp):
         fa, _sam, path, twin = bam
         opts, n_bams = CONFIGS[config]
         out = os.path.join(tmp, f"{pkg}_{mode}_{config}.vcf")
-        env = {"BISCUIT_TPU_PILEUP": mode} if mode else {}
+        # the port's device engine, whichever engine is its default
+        env = {"BISCUIT_TPU_PILEUP": mode} if mode else \
+            {"BISCUIT_TPU_TORCH_PILEUP": "device"}
         _cli(pkg, ["pileup", *opts, "-o", out, fa, *(path, twin)[:n_bams]],
              **env)
         with open(out) as f:
@@ -394,7 +397,8 @@ def test_pileup_subprocess_imports_neither_jax_nor_the_jax_package(bam, tmp_path
         "theirs = [m for m in sys.modules if m == 'jax' or m == 'biscuit_tpu'\n"
         "          or m.startswith(('jax.', 'biscuit_tpu.'))]\n"
         "print(rc, not theirs)\n")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=_env(BISCUIT_TPU_TORCH_PILEUP="device"),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.split() == ["0", "True"]

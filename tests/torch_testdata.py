@@ -49,6 +49,57 @@ def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
     return fa, fq, idx
 
 
+# the environment switches of both packages' CLIs: a CLI test clears them,
+# so that each run names its own
+SWITCHES = ("BISCUIT_TPU_PILEUP", "BISCUIT_TPU_STREAMS",
+            "BISCUIT_TPU_TORCH_PILEUP", "BISCUIT_TPU_TORCH_STREAMS")
+
+
+def cli_env(**more):
+    """The environment of a CLI subprocess: the port's plain versions on the
+    CPU, one intra-op thread, no switch of SWITCHES unless `more` names it."""
+    env = {k: v for k, v in os.environ.items() if k not in SWITCHES}
+    env["BISCUIT_TPU_TORCH_DEVICE"] = "cpu"
+    env["OMP_NUM_THREADS"] = "1"
+    env.update(more)
+    return env
+
+
+def run_cli(pkg, argv, rc=0, **env):
+    """`python -m <pkg>.cli <argv>` from the repository's root under
+    cli_env(**env); its exit code must be `rc`. The CompletedProcess, in
+    text."""
+    r = subprocess.run([sys.executable, "-m", pkg + ".cli", *argv], cwd=REPO,
+                       env=cli_env(**env), capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == rc, (pkg, argv, r.stderr[-3000:])
+    return r
+
+
+def diploid_dataset(d, n_reads, snp_rate, pe=False, index=True, **kw):
+    """A diploid sample of make_dataset's genome in directory `d`: the first
+    half of n_reads (pairs with pe=True) from its haplotype with SNPs at
+    snp_rate, the other half from the reference (the same seed: the same
+    genome), in one FASTQ (or one pair) with the names of each half
+    prefixed `snp` and `ref`, so that every SNP is heterozygous and `asm`
+    has two alleles to test. kw: make_dataset's other arguments. Returns
+    what make_dataset returns."""
+    fa, fq, idx = make_dataset(d, n_reads=n_reads - n_reads // 2,
+                               snp_rate=snp_rate, pe=pe, index=index, **kw)
+    _fa, ref_fq, _ = make_dataset(os.path.join(str(d), "ref"),
+                                  n_reads=n_reads // 2, pe=pe, index=False,
+                                  **kw)
+    for path, ref in zip(fq if pe else (fq,), ref_fq if pe else (ref_fq,)):
+        halves = []
+        for tag, src in (("snp", path), ("ref", ref)):
+            with open(src) as f:
+                halves += [f"@{tag}{ln[1:]}" if i % 4 == 0 else ln
+                           for i, ln in enumerate(f)]
+        with open(path, "w") as g:
+            g.writelines(halves)
+    return fa, fq, idx
+
+
 def damage_mates(fq2, every=3, step=9):
     """Rewrite mate-2 FASTQ `fq2`: in every `every`-th record (0, every,
     2*every, ...) each `step`-th base (0, step, ...) moves one letter on in
