@@ -1,8 +1,7 @@
 """biscuit_tpu_torch command-line interface.
 
-The counterparts of biscuit_tpu.cli's `index`, `align`, `sort`, `bamindex`,
-`pileup`, `vcf2bed`, `mergecg`, `epiread`, `rectangle` and `asm`, with the
-same options and the same output. `align` runs SE and PE reads through the
+The counterparts of every subcommand of biscuit_tpu.cli, with the same
+options and the same output. `align` runs SE and PE reads through the
 engine named by BISCUIT_TPU_TORCH_ENGINE (default `device`, the hybrid
 engine: seeds from the device into the native C++ engine; `device-jax`,
 `native` and `host` when named; see ENGINES). `pileup` runs the engine
@@ -14,9 +13,11 @@ default), which makes the count matrices of every window
 their C++ line filters unless BISCUIT_TPU_TORCH_STREAMS=python; `epiread`
 runs the C++ raw-BAM window engine on BAM input unless
 BISCUIT_TPU_TORCH_PILEUP=device names its Python window walk (epiread has
-no kernel). None of those five uses torch. SAM and VCF go to stdout
-unless `-o` names a file. Any other subcommand of biscuit_tpu is answered
-with "not ported yet" and exit code 1.
+no kernel). None of those five uses torch, and neither does the QC family
+(`bsstrand`, `bsconv`, `cinread`, `qc`, `tview`, `bc`): host code over the
+BAM, as in biscuit_tpu. SAM and VCF go to stdout unless `-o` names a file.
+A name that is no subcommand is answered as biscuit_tpu.cli answers it:
+"Unknown subcommand: <name>" on stderr and exit code 1.
 
     python -m biscuit_tpu_torch.cli index <genome.fa>
     python -m biscuit_tpu_torch.cli align <genome.fa> <reads.fq> > out.sam
@@ -820,10 +821,14 @@ SUBCOMMANDS = {
     "mergecg": _sub("mergecg"),
     "epiread": main_epiread,
     "asm": _sub("asm"),
+    "bsstrand": _sub("bsstrand"),
+    "bsconv": _sub("bsconv"),
+    "cinread": _sub("cinread"),
+    "qc": _sub("qc"),
+    "bc": _sub("bc"),
     "rectangle": _sub("rectangle"),
+    "tview": _sub("tview"),
 }
-# subcommands of biscuit_tpu that the port does not have yet
-NOT_PORTED = ("bsstrand", "bsconv", "cinread", "qc", "bc", "tview")
 
 
 def main(argv=None):
@@ -836,19 +841,31 @@ Version: {__version__} (behavioral parity target: biscuit {REFERENCE_VERSION})
 Usage: python -m biscuit_tpu_torch.cli <command> [options]
 
 Command:
+ -- Read mapping
     index        Index reference genome sequences in the FASTA format
     align        Align bisulfite-treated short reads (adapted BWA-MEM)
-    sort         Coordinate-sort SAM/BAM
-    bamindex     Write a .bai index for a sorted BAM
+
+ -- BAM operation
+    tview        Text alignment viewer with bisulfite coloring
+    bsstrand     Validate/correct the bisulfite strand label (YD tag)
+    bsconv       Summarize/filter reads by bisulfite conversion (ZN tag)
+    cinread      Print cytosine-read pairs in long form
+
+ -- Base summary
     pileup       Pileup cytosines and mutations to VCF
     vcf2bed      Convert VCF to BED tracks
     mergecg      Merge the C and G of a CpG
+
+ -- Epireads
     epiread      Convert BAM to the epiBED format
     rectangle    Convert old epiread format to a rectangular matrix
     asm          Test allele-specific methylation
-    version      Print the version
 
-Not ported yet: {", ".join(NOT_PORTED)}
+ -- Other
+    bc           Extract barcodes/UMIs from FASTQ
+    sort         Coordinate-sort SAM/BAM
+    bamindex     Write a .bai index for a sorted BAM
+    version      Print the version
 """, file=sys.stderr)
         return 1
     if argv[0] == "version":
@@ -857,8 +874,7 @@ Not ported yet: {", ".join(NOT_PORTED)}
         return 0
     cmd = SUBCOMMANDS.get(argv[0])
     if cmd is None:
-        print(f"[biscuit_tpu_torch] '{argv[0]}' is not ported yet",
-              file=sys.stderr)
+        print(f"Unknown subcommand: {argv[0]}", file=sys.stderr)
         return 1
     try:
         ret = cmd(argv[1:])

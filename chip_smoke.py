@@ -135,6 +135,17 @@ Phases, one line each (more for the kernel table):
      the whole BAM in 20 and 100 windows, at both thread counts;
      rectangle on chr1's -O epireads and asm on the -P epireads
      must give well-formed rows; lines/s of each run
+  6d. the QC family and the companion scripts (host code, as in the JAX
+     package) on phase 6's genome, FASTQ, BAM and VCF: bsstrand -c -y to a
+     BAM, bsconv -p -m 2, cinread -t cg and -t ch on chr1's first QC_SPAN
+     bp, tview -d, bc, QC.py -v (with qc -s inside it) on the assets of
+     scripts/build_qc_assets.py, flip_pbat_strands, pybiscuit to_methylKit;
+     qc with insert sizes, bc on two FASTQs and pybiscuit to_mr on phase
+     4b's pairs; each in this process with no kernel launched, its outputs
+     equal to the same command's in a process of its own with no card
+     (CUDA_VISIBLE_DEVICES=); a BAM flipped twice holds the input's
+     records; cinread_func's vectorized counts equal its walk's; the wall
+     and reads/s or lines/s of each run
   5. (last) neither jax nor any module of the JAX package was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
@@ -162,6 +173,9 @@ PLP_GENOME, PLP_READS = 200_000, 40_000
 PLP_WINDOW, PLP_DATA = 100_000, 3_000_000   # K9's shape on that path
 # phase 6c: rectangle and asm on the epireads of chr1's first 10 kbp
 RECT_SPAN = 10_000
+# phase 6d: cinread's per-site rows on chr1's first QC_SPAN bp, and tview's
+# dump of a TVIEW_WIDTH bp window at TVIEW_AT
+QC_SPAN, TVIEW_AT, TVIEW_WIDTH = 20_000, "chr1:50000", 120
 # phase 4c: reads wider than the DP kernels' widest strip (512 columns), SE
 # and as mate 1
 WIDE_LEN, N_WIDE, N_WIDE_PAIRS = 640, 128, 64
@@ -963,6 +977,219 @@ def phase_6c(work, card, pileup, gfa, gbam, vcf):
                              for r in rows):
         raise AssertionError(f"6c asm: {len(rows)} rows, or one malformed")
     say(f"[6c] {time.perf_counter() - t_phase:.1f} s")
+
+
+def script_main(name, argv):
+    """The port's companion script `name` (biscuit_tpu_torch/scripts/) on
+    argv in this process: its exit code."""
+    import importlib
+    mod = importlib.import_module(f"biscuit_tpu_torch.scripts.{name}")
+    saved = sys.argv
+    sys.argv = [mod.__file__, *argv]
+    try:
+        return mod.main()
+    finally:
+        sys.argv = saved
+
+
+def phase_6d(work, card, gfa, gfq, gbam, vcf, fa, fq1, fq2):
+    """6d. the QC family and the companion scripts, host code in the port as
+    in the JAX package, on phase 6's genome, FASTQ, BAM (with the .bai of
+    6b) and VCF, each through its entry point in this process: bsstrand -c
+    -y to a BAM (and its report), bsconv -p -m 2, cinread (-t cg and -t ch,
+    cut to chr1's first QC_SPAN bp: a Python walk a site), tview -d (a
+    TVIEW_WIDTH bp window at TVIEW_AT, -c t), bc (SE into a .fq.gz), QC.py
+    -v (which runs qc -s) on the assets of scripts/build_qc_assets.py,
+    flip_pbat_strands, pybiscuit to_methylKit (on vcf2bed -e's CpG beta and
+    coverage); and what needs pairs on phase 4b's 2048 pairs (`fa`, `fq1`,
+    `fq2`, aligned by the native engine and sorted here): qc with insert
+    sizes, bc on two FASTQs, pybiscuit to_mr. Each must exit 0 with no
+    kernel launched, and write the stdout, stderr (without its [main]
+    lines) and files of the same command run in a process of its own with
+    CUDA_VISIBLE_DEVICES= (no card); the flipped BAM flipped again must
+    hold the input's records; cinread_func's vectorized counts (qc's path)
+    must equal its per-site walk's for every target on the cut."""
+    import numpy as np
+    from biscuit_tpu_torch import cli, kernels
+    from biscuit_tpu_torch.io.sambam import AlignmentFile
+    from biscuit_tpu_torch.pileup.common import RefCache
+    from biscuit_tpu_torch.subcmds.cinread import (TGT_NAMES, CinreadConf,
+                                                   CinreadData, cinread_func)
+    from torch_testdata import tree_files
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "qc")
+    os.makedirs(d)
+    # set-up: the PE BAM, the CpG table of to_methylKit, the QC assets
+    t0 = time.perf_counter()
+    psam, pbam = os.path.join(d, "pe.sam"), os.path.join(d, "pe.bam")
+    saved = os.environ.get("BISCUIT_TPU_TORCH_ENGINE")
+    os.environ["BISCUIT_TPU_TORCH_ENGINE"] = "native"
+    try:
+        with open(psam, "w") as f, contextlib.redirect_stdout(f):
+            rc = cli.main(["align", fa, fq1, fq2])
+    finally:
+        os.environ.pop("BISCUIT_TPU_TORCH_ENGINE")
+        if saved is not None:
+            os.environ["BISCUIT_TPU_TORCH_ENGINE"] = saved
+    if rc != 0 or cli.main(["sort", "-o", pbam, psam]) != 0:
+        raise AssertionError("6d: the PE align or sort failed")
+    cg_bed, cg_table = os.path.join(d, "cg.bed"), os.path.join(d, "cg.txt")
+    with open(cg_bed, "w") as f, contextlib.redirect_stdout(f):
+        if cli.main(["vcf2bed", "-t", "cg", "-e", vcf]) != 0:
+            raise AssertionError("6d: vcf2bed -e failed")
+    with open(cg_bed) as f, open(cg_table, "w") as g:
+        # chrom, beg, end, beta, coverage, the cytosine's base
+        g.writelines("\t".join(r[:3] + r[7:9] + r[3:4]) + "\n"
+                     for r in (ln.rstrip("\n").split("\t") for ln in f))
+    assets = os.path.join(d, "assets")
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts",
+                                                 "build_qc_assets.py"),
+                    "-r", gfa, "-o", assets, "-i"], check=True,
+                   capture_output=True)
+    say(f"[6d] set-up: phase 4b's {N_PAIRS} pairs aligned (native engine) and "
+        f"sorted, vcf2bed -e's CpG table, QC assets, in "
+        f"{time.perf_counter() - t0:.1f} s; cinread cut to chr1:1-{QC_SPAN}, "
+        f"tview to {TVIEW_WIDTH} bp at {TVIEW_AT}")
+
+    region = f"chr1:1-{QC_SPAN}"
+    n_pe = 2 * N_PAIRS
+    # tag -> (script or None for the CLI, argv with {out} its own directory,
+    # reads it takes or None: lines it writes)
+    runs = {
+        "bsstrand -c -y": (None, ["bsstrand", "-c", "-y", gfa, gbam,
+                                  "{out}/c.bam"], PLP_READS),
+        "bsconv -p -m 2": (None, ["bsconv", "-p", "-m", "2", gfa, gbam],
+                           PLP_READS),
+        "cinread -t cg": (None, ["cinread", "-t", "cg", "-g", region, gfa,
+                                 gbam], None),
+        "cinread -t ch": (None, ["cinread", "-t", "ch", "-g", region, gfa,
+                                 gbam], None),
+        "qc (PE)": (None, ["qc", fa, pbam, "{out}/p"], n_pe),
+        "tview -d": (None, ["tview", "-d", "-g", TVIEW_AT, "-w",
+                            str(TVIEW_WIDTH), "-c", "t", gbam, gfa], None),
+        "bc": (None, ["bc", "-o", "{out}/bc", gfq], PLP_READS),
+        "bc (PE)": (None, ["bc", "-o", "{out}/bc", fq1, fq2], n_pe),
+        "QC.py -v": ("QC", ["-v", vcf, "-o", "{out}/qc", assets, gfa, "s",
+                            gbam], PLP_READS),
+        "flip_pbat_strands": ("flip_pbat_strands", [gbam, "{out}/f.bam"],
+                              PLP_READS),
+        "pybiscuit to_mr": ("pybiscuit", ["to_mr", "-i", pbam, "-o",
+                                          "{out}/x.mr"], n_pe),
+        "pybiscuit to_methylKit": ("pybiscuit", ["to_methylKit", "-i",
+                                                 cg_table, "-o",
+                                                 "{out}/x.txt"], None),
+    }
+
+    def outputs(stdout, stderr, out):
+        """(stdout, stderr without its [main] lines and with `out` read as
+        {out}, the files under `out`)."""
+        stderr = "".join(ln for ln in stderr.splitlines(True)
+                         if not ln.startswith("[main] "))
+        return stdout, stderr.replace(out, "{out}"), tree_files(out)
+
+    got = {}
+    err = os.path.join(d, "stderr")
+    for k, (tag, (script, argv, n_reads)) in enumerate(runs.items()):
+        out = os.path.join(d, "card", str(k))
+        os.makedirs(out)
+        argv = [a.format(out=out) for a in argv]
+        gc.collect()
+        kernels.reset_launches()
+        buf = io.StringIO()
+        sys.stderr.flush()
+        fd = os.dup(2)   # the family writes reports to the stderr of import
+        with open(err, "w") as e:
+            os.dup2(e.fileno(), 2)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = (cli.main(argv) if script is None
+                          else script_main(script, argv))
+            finally:
+                wall = time.perf_counter() - t0
+                sys.stderr.flush()
+                os.dup2(fd, 2)
+                os.close(fd)
+        gc.collect()   # closes the files a script's argparse opened
+        with open(err) as e:
+            got[tag] = outputs(buf.getvalue(), e.read(), out)
+        if rc not in (0, None) or any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"6d {tag}: exit {rc}, launches "
+                                 f"{dict(kernels.LAUNCHES)}: {got[tag][1]}")
+        n_lines = sum(v.count(b"\n") for v in got[tag][2].values()) + \
+            got[tag][0].count("\n")
+        if not n_lines:
+            raise AssertionError(f"6d {tag}: no output")
+        rate = (f"{n_reads / wall:.1f} reads/s ({n_reads} reads)" if n_reads
+                else f"{n_lines / wall:.1f} lines/s ({n_lines} lines)")
+        say(f"[6d] {tag}: {wall:.3f} s, {rate}; no launch [{card}]")
+
+    # the same commands, each in a process of its own with no card, all at
+    # once, and the flipped BAM flipped back; meanwhile, in this process,
+    # cinread_func's vectorized count path (qc's) against its per-site walk
+    t0 = time.perf_counter()
+    no_card = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    flip = "biscuit_tpu_torch.scripts.flip_pbat_strands"
+    back = os.path.join(d, "back.bam")
+
+    def on_cpu(k, tag):
+        script, argv, _n = runs[tag]
+        out = os.path.join(d, "cpu", str(k))
+        os.makedirs(out)
+        mod = ("biscuit_tpu_torch.cli" if script is None
+               else f"biscuit_tpu_torch.scripts.{script}")
+        r = subprocess.run([sys.executable, "-m", mod,
+                            *(a.format(out=out) for a in argv)], cwd=REPO,
+                           env=no_card, capture_output=True, text=True)
+        return r.returncode, outputs(r.stdout, r.stderr, out)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        jobs = {tag: pool.submit(on_cpu, k, tag)
+                for k, tag in enumerate(runs)}
+        flipped = os.path.join(d, "card", str(list(runs).index(
+            "flip_pbat_strands")), "f.bam")
+        back_job = pool.submit(subprocess.run, [
+            sys.executable, "-m", flip, flipped, back], cwd=REPO,
+            env=no_card, capture_output=True, text=True)
+        t1 = time.perf_counter()
+        bam, rs = AlignmentFile(gbam), RefCache(gfa)
+        recs = list(bam.fetch(0, 0, QC_SPAN))
+        for tgt in range(len(TGT_NAMES)):
+            walk = CinreadConf(tgt=tgt, skip_printing=0)
+            vec = CinreadConf(tgt=tgt, skip_printing=1)
+            dw, dv = CinreadData(), CinreadData()
+            for b in recs:
+                cinread_func(b, rs, walk, dw, bam.header.names, io.StringIO())
+                cinread_func(b, rs, vec, dv, bam.header.names, io.StringIO())
+            if not np.array_equal(dw.counts, dv.counts) or \
+                    not dv.counts.sum():
+                raise AssertionError(f"6d cinread -t {TGT_NAMES[tgt]}: the "
+                                     f"vectorized counts differ from the "
+                                     f"walk's")
+        t_cin = time.perf_counter() - t1
+        cpu = {tag: job.result() for tag, job in jobs.items()}
+        back_rc = back_job.result().returncode
+    for tag, (rc, outs) in cpu.items():
+        if rc != 0 or outs != got[tag]:
+            raise AssertionError(f"6d {tag}: the run with no card exited {rc} "
+                                 f"or wrote other outputs: {outs[1][-2000:]}")
+    key = lambda r: (r.qname, r.flag, r.tid, r.pos, r.cigar, r.seq, r.qual,
+                     r.tags)
+    if back_rc != 0 or [key(r) for r in AlignmentFile(back)] != \
+            [key(r) for r in AlignmentFile(gbam)]:
+        raise AssertionError("6d: a BAM flipped twice differs from its input")
+    theirs = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                            "biscuit_tpu")]
+    if theirs:
+        raise AssertionError(f"6d imported {theirs}")
+    say(f"[6d] each command again in a process of its own with "
+        f"CUDA_VISIBLE_DEVICES= ({os.cpu_count()} at once, "
+        f"{time.perf_counter() - t0:.1f} s): stdout, stderr and files the "
+        f"same; the flipped BAM flipped back == the input's records; "
+        f"meanwhile cinread_func's vectorized counts == its walk's for "
+        f"{', '.join(TGT_NAMES)} on chr1:1-{QC_SPAN}'s {len(recs)} reads "
+        f"({t_cin:.1f} s); no jax, no biscuit_tpu")
+    say(f"[6d] {time.perf_counter() - t_phase:.1f} s")
 
 
 def smoke(work: str) -> int:
@@ -2628,6 +2855,7 @@ def smoke(work: str) -> int:
     say_busy("6", prof, wall, "pileup_count")
     phase_6b(work, card, pileup, vcf_lines, gfa, gsam, gbam, vcf_gpu,
              len(sites), [t_plp, t_plp2])
+    phase_6d(work, card, gfa, gfq, gbam, vcf_gpu, fa, fq1, fq2)
 
     # 5. neither jax nor the JAX package was imported
     theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")

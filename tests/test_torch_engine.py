@@ -481,9 +481,10 @@ SWITCHES = {"BISCUIT_TPU_STREAMS": "BISCUIT_TPU_TORCH_STREAMS",
 
 def _code(path, drop=(), args=(), renamed=()):
     """Module body as AST dumps, without the docstring, any import
-    statement, the top-level names in `drop` and the parameters and
-    keyword arguments named in `args`, with the switches named in
-    `renamed` read as the port's (SWITCHES)."""
+    statement, the top-level names in `drop` (functions, assignments, and
+    calls such as `sys.path.insert` standing as statements) and the
+    parameters and keyword arguments named in `args`, with the switches
+    named in `renamed` read as the port's (SWITCHES)."""
     with open(path) as f:
         tree = _NoArgs(args).visit(_NoImports().visit(ast.parse(f.read())))
     tree = _Renamed({k: SWITCHES[k] for k in renamed}).visit(tree)
@@ -498,15 +499,19 @@ def _code(path, drop=(), args=(), renamed=()):
             continue
         if isinstance(node, ast.AnnAssign) and node.target.id in drop:
             continue
+        if isinstance(node, ast.Expr) and isinstance(node.value, ast.Call) \
+                and ast.unparse(node.value.func) in drop:
+            continue
         out.append(ast.dump(node))
     return out
 
 
 # every module the port copied from the JAX package: id -> (path inside
-# either package, top-level names left out of the comparison[, parameters
-# and keyword arguments left out of it[, the environment switches it reads
-# under the port's name (SWITCHES)]]). What is left out or renamed is what
-# the copy deliberately changes or does not carry.
+# either package, or the pair (source, copy) of paths from the repository's
+# root; top-level names left out of the comparison[, parameters and keyword
+# arguments left out of it[, the environment switches it reads under the
+# port's name (SWITCHES)]]). What is left out or renamed is what the copy
+# deliberately changes or does not carry.
 _ALIGN = {n: (f"align/{n}.py", ()) for n in ("trace", "smem", "region",
                                              "pair")}
 COPIES = {
@@ -565,14 +570,34 @@ COPIES = {
     "subcmds/epiread": ("subcmds/epiread.py", (), (), ("BISCUIT_TPU_PILEUP",)),
     "subcmds/rectangle": ("subcmds/rectangle.py", ()),
     "subcmds/asm": ("subcmds/asm.py", ()),
+    "subcmds/bc": ("subcmds/bc.py", ()),
+    "subcmds/bsstrand": ("subcmds/bsstrand.py", ()),
+    "subcmds/bsconv": ("subcmds/bsconv.py", ()),
+    "subcmds/cinread": ("subcmds/cinread.py", ()),
+    "subcmds/qc": ("subcmds/qc.py", ()),
+    "subcmds/tview": ("subcmds/tview.py", ()),
+    # the companion scripts, inside the port's package: the repository's
+    # root, which each puts on sys.path, lies one directory further up
+    "scripts/QC": (("scripts/QC.py", "biscuit_tpu_torch/scripts/QC.py"),
+                   ("REPO",)),
+    "scripts/flip_pbat_strands": (
+        ("scripts/flip_pbat_strands.py",
+         "biscuit_tpu_torch/scripts/flip_pbat_strands.py"),
+        ("sys.path.insert",)),
+    "scripts/pybiscuit": (("scripts/pybiscuit.py",
+                           "biscuit_tpu_torch/scripts/pybiscuit.py"),
+                          ("sys.path.insert",)),
 }
 
 
 @pytest.mark.parametrize("name", list(COPIES))
 def test_copied_module_matches_source(name):
     rel, drop, args, renamed = (COPIES[name] + ((), ()))[:4]
-    src = os.path.join(REPO, "biscuit_tpu", rel)
-    dst = os.path.join(REPO, "biscuit_tpu_torch", rel)
+    if isinstance(rel, tuple):
+        src, dst = (os.path.join(REPO, p) for p in rel)
+    else:
+        src = os.path.join(REPO, "biscuit_tpu", rel)
+        dst = os.path.join(REPO, "biscuit_tpu_torch", rel)
     assert _code(dst, drop, args) == _code(src, drop, args, renamed)
     # a renamed switch is read under the port's name, never the source's
     for k in renamed:
@@ -732,17 +757,28 @@ def test_bisindex_from_numpy_carries_every_field(data):
     _same_index(again, idx.jax)
 
 
-@pytest.mark.parametrize("name", ["qc", "bsconv", "tview", "nonsense"])
-def test_cli_answers_other_subcommands_with_not_ported(name):
+@pytest.mark.parametrize("name", ["nonsense", "mpileup", "QC", "view",
+                                  "--version"])
+def test_cli_answers_unknown_subcommands_as_the_jax_cli(name):
+    """A name that neither CLI has: both write the same line to stderr,
+    nothing to stdout, and exit 1."""
+    from biscuit_tpu import cli as jcli
     from biscuit_tpu_torch import cli
-    assert name not in cli.SUBCOMMANDS
-    assert cli.NOT_PORTED == ("bsstrand", "bsconv", "cinread", "qc", "bc",
-                              "tview")
-    r = subprocess.run([sys.executable, "-m", "biscuit_tpu_torch.cli", name],
-                       cwd=REPO, env=_env(), capture_output=True, text=True,
-                       timeout=120)
-    assert r.returncode == 1 and r.stdout == ""
-    assert f"[biscuit_tpu_torch] '{name}' is not ported yet" in r.stderr
+    assert name not in cli.SUBCOMMANDS and name not in jcli.SUBCOMMANDS
+    runs = [subprocess.run([sys.executable, "-m", f"{pkg}.cli", name],
+                           cwd=REPO, env=_env(), capture_output=True,
+                           text=True, timeout=120)
+            for pkg in ("biscuit_tpu_torch", "biscuit_tpu")]
+    for r in runs:
+        assert (r.returncode, r.stdout, r.stderr) == \
+            (1, "", f"Unknown subcommand: {name}\n")
+
+
+def test_cli_has_every_subcommand_of_the_jax_cli():
+    from biscuit_tpu import cli as jcli
+    from biscuit_tpu_torch import cli
+    assert list(cli.SUBCOMMANDS) == list(jcli.SUBCOMMANDS)
+    assert not hasattr(cli, "NOT_PORTED")
 
 
 # ---------------------------------------------------------------------------

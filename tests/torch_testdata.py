@@ -76,6 +76,19 @@ def run_cli(pkg, argv, rc=0, **env):
     return r
 
 
+def tree_files(root):
+    """{path under root: bytes} of every file there, a .gz file
+    decompressed (gzip's header holds the time it was written)."""
+    import gzip
+    got = {}
+    for top, _dirs, names in os.walk(root):
+        for n in names:
+            path = os.path.join(top, n)
+            with (gzip.open if n.endswith(".gz") else open)(path, "rb") as f:
+                got[os.path.relpath(path, root)] = f.read()
+    return got
+
+
 def diploid_dataset(d, n_reads, snp_rate, pe=False, index=True, **kw):
     """A diploid sample of make_dataset's genome in directory `d`: the first
     half of n_reads (pairs with pe=True) from its haplotype with SNPs at
