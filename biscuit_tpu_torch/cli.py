@@ -8,9 +8,14 @@ engine: seeds from the device into the native C++ engine; `device-jax`,
 named by BISCUIT_TPU_TORCH_PILEUP (see PILEUP_ENGINES): `device` (the
 default), which makes the count matrices of every window
 (ops/pileup_count.py) on the device named by BISCUIT_TPU_TORCH_DEVICE
-(default `cuda`; `cpu` runs the plain torch versions of the kernels), or
-`native`, the C++ window engine, when named. `vcf2bed` and `mergecg` run
-their C++ line filters unless BISCUIT_TPU_TORCH_STREAMS=python; `epiread`
+(default `cuda`; `cpu` runs the plain torch versions of the kernels),
+`native`, the C++ window engine, or `mesh`, the device engine's counts
+summed over the ranks of a torchrun process group, when named. The sharded
+drivers (biscuit_tpu_torch/tools/) steer `align` with
+BISCUIT_TPU_TORCH_FASTQ_STRIDE and BISCUIT_TPU_TORCH_PES_EXCHANGE and read
+`pileup`'s raw stats from BISCUIT_TPU_TORCH_MA_RAW. `vcf2bed` and
+`mergecg` run their C++ line filters unless
+BISCUIT_TPU_TORCH_STREAMS=python; `epiread`
 runs the C++ raw-BAM window engine on BAM input unless
 BISCUIT_TPU_TORCH_PILEUP=device names its Python window walk (epiread has
 no kernel). None of those five uses torch, and neither does the QC family
@@ -78,6 +83,11 @@ def main_index(argv):
 # host        the host engine, Python (also what -v 4 and above run)
 ENGINE_ENV = "BISCUIT_TPU_TORCH_ENGINE"
 ENGINES = ("device", "device-jax", "native", "host")
+# the sharded drivers' switches of `align` (biscuit_tpu_torch/tools/
+# shard_align.py): the records k, k+n, ... of the input (k:n), and the PE
+# insert-size exchange across ranks (dir:rank:n)
+STRIDE_ENV = "BISCUIT_TPU_TORCH_FASTQ_STRIDE"
+EXCHANGE_ENV = "BISCUIT_TPU_TORCH_PES_EXCHANGE"
 
 
 def main_align(argv):
@@ -333,6 +343,15 @@ Input/output options:
     from .align import trace
     trace.set_verbose(verbose)
 
+    # multi-host PE determinism: pool candidate insert sizes across shard
+    # ranks so every rank computes the same pes (biscuit_tpu_torch/tools/
+    # shard_align.py sets BISCUIT_TPU_TORCH_PES_EXCHANGE=dir:rank:n)
+    from .parallel.exchange import from_env as _exchange_from_env
+    _ex = _exchange_from_env()
+    if _ex is not None:
+        from .align import pair as _pairmod
+        _pairmod.ISIZE_EXCHANGE = _ex
+
     engine = os.environ.get(ENGINE_ENV, "device")
     if engine not in ENGINES:
         print(f"[E::main_align] unknown engine '{engine}' in {ENGINE_ENV} "
@@ -414,6 +433,27 @@ Input/output options:
         else:
             it2 = fastq_iter(args[2])
             opt.flag |= MEM_F_PE
+    # BISCUIT_TPU_TORCH_FASTQ_STRIDE=k:n — this worker owns records k, k+n,
+    # k+2n, ... of the (shared) input. The multi-host data-parallel layer
+    # (biscuit_tpu_torch/tools/shard_align.py) uses this so every worker
+    # streams the SAME fastq: no serial sharding pass, no temp shard files.
+    # With -1/-2 the stride applies per file, keeping mates paired; with -p
+    # (smart pairing, interleaved mates in ONE file) it strides by PAIR
+    # groups — a per-record stride would hand all read-1s to one worker and
+    # silently mispair (pairing is positional: mem_process_seqs pairs
+    # records 2i, 2i+1).
+    stride = os.environ.get(STRIDE_ENV)
+    if stride:
+        k_s, n_s = (int(x) for x in stride.split(":"))
+        grp = 2 if (opt.flag & MEM_F_SMARTPE) else 1
+
+        def _strided(it, k=k_s, n=n_s, g=grp):
+            for i, rec in enumerate(it):
+                if (i // g) % n == k:
+                    yield rec
+        it1 = _strided(it1)
+        if it2 is not None:
+            it2 = _strided(it2)
     n_processed = 0
     chunk = opt.chunk_size * opt.n_threads
     # kt_pipeline equivalent (reference align.c:577 + kthread.c:176-256):
@@ -452,7 +492,20 @@ Input/output options:
             if s.sam:
                 out.write(s.sam)
     rt.join()
+    report_launches("main_align")
     return 0
+
+
+def report_launches(who: str) -> None:
+    """The kernels this process launched, as one line on stderr, where it
+    launched any (a run on the card): what a check of the sharded drivers
+    and of the mesh's ranks reads."""
+    k = sys.modules.get(__package__ + ".kernels")
+    launched = {n: v for n, v in (k.LAUNCHES.items() if k else ()) if v}
+    if launched:
+        import json
+        print(f"[{who}] kernel launches: {json.dumps(launched, sort_keys=True)}",
+              file=sys.stderr)
 
 
 # pileup's engines, picked by BISCUIT_TPU_TORCH_PILEUP (default
@@ -464,12 +517,23 @@ Input/output options:
 #         records, read from the decompressed BAM or, where a .bai lies
 #         beside it, block by block; on record objects for SAM input. No
 #         torch, no device
-# -v above 0 runs the per-datum Python path under either. epiread reads the
-# same switch (main_epiread): `native`, its default, is its C++ raw-BAM
+# mesh    the `device` engine's counts over the ranks of a process group
+#         (parallel/mesh.py): each rank counts its slice of a window's data
+#         with K9's fused window count and the counts are summed across
+#         ranks.
+#         Started by torchrun (WORLD_SIZE above 1) the CLI joins its group
+#         (init_process_group("env://"), nccl where every rank has a card
+#         of its own, else gloo) and rank 0 alone writes the VCF and the
+#         stats; otherwise the mesh is this process alone
+# -v above 0 runs the per-datum Python path under all three. epiread reads
+# the same switch (main_epiread): `native`, its default, is its C++ raw-BAM
 # engine, `device` its Python window walk.
 PILEUP_ENV = "BISCUIT_TPU_TORCH_PILEUP"
-PILEUP_ENGINES = ("device", "native")
+PILEUP_ENGINES = ("device", "native", "mesh")
 PILEUP_DEFAULT = "device"
+# the raw per-chromosome accumulators of _meth_average.tsv as JSON, for the
+# sharded pileup driver's merge (biscuit_tpu_torch/tools/shard_pileup.py)
+MA_RAW_ENV = "BISCUIT_TPU_TORCH_MA_RAW"
 
 
 def main_pileup(argv):
@@ -595,7 +659,16 @@ Genotyping options:
               f"(one of {', '.join(PILEUP_ENGINES)})", file=sys.stderr)
         return 1
     # the C++ engine makes no CUDA context: None is its device
-    device = resolve() if engine == "device" else None
+    device = resolve() if engine != "native" else None
+    writes = True  # only rank 0 of a mesh writes
+    if engine == "mesh":
+        from .parallel.mesh import init_from_env, make_mesh
+        world, rank, backend, device = init_from_env(device)
+        print(f"[main_pileup] mesh: rank {rank} of {world}, backend "
+              f"{backend or 'none (one rank)'}, device {device}",
+              file=sys.stderr)
+        device = make_mesh(world, device)
+        writes = rank == 0
     t_open = time.perf_counter()
     # raw-BAM fast path: the C++ engine parses records straight from the
     # decompressed blob (fork workers share it copy-on-write)
@@ -613,7 +686,10 @@ Genotyping options:
                      key=lambda tid: hdr.names[tid])  # list of tids in name order
     target_pairs = [(hdr.names[t], hdr.lengths[t]) for t in targets]
 
-    out = open(outfn, "w") if outfn else sys.stdout
+    if not writes:
+        out = open(os.devnull, "w")
+    else:
+        out = open(outfn, "w") if outfn else sys.stdout
     out.write(vcf_header(reffn, target_pairs, ["pileup"] + argv, conf, in_fns))
 
     rs = RefCache(reffn)
@@ -676,7 +752,7 @@ Genotyping options:
         out.close()
     if not statsfn and outfn:
         statsfn = outfn
-    if statsfn:
+    if statsfn and writes:
         with open(statsfn + "_meth_average.tsv", "w") as f:
             if conf.comm.is_nome:
                 f.write("sample\tchrm\tHCGn\tHCGb\tHCHGn\tHCHGb\tHCHHn\tHCHHb\tHCHn\tHCHb\tGCn\tGCb\n")
@@ -702,6 +778,26 @@ Genotyping options:
                 for line in meth_average_table(conf, sample, names,
                                                by_row_beta, by_row_cnt):
                     f.write(line)
+    raw_fn = os.environ.get(MA_RAW_ENV)
+    if raw_fn and writes:
+        # machine-readable raw accumulators for multi-host merging
+        # (tools/shard_pileup.py recomputes WholeGenome from exact sums)
+        import json as _json
+        dump = {}
+        for sid, fn in enumerate(in_fns):
+            per = {}
+            for tid in range(len(hdr.names)):   # accumulators key = true tid
+                per[hdr.names[tid]] = {
+                    "betasum": betasum[sid].get(tid, [0.0] * NCONTXTS),
+                    "cnt": cnts[sid].get(tid, [0] * NCONTXTS),
+                }
+            dump[fn] = per
+        with open(raw_fn, "w") as f:
+            _json.dump({"is_nome": int(conf.comm.is_nome), "stats": dump}, f)
+    report_launches("main_pileup")
+    if engine == "mesh" and device.size() > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -8,6 +8,18 @@ tables carried to the device), occ4 and the bidirectional extend (K5,
 ranks), with `sa_batch_intervals`, the same walk for the ranks of a list of
 seed intervals as the seeder leaves them on the device.
 
+`fm_shard` cuts the tables row-contiguously over the ranks of an `idx`
+process group (the source's `fm_shard_arrays` and its shard fields). Every
+row read of the plain machines goes through `_tab_row` and `_sa_sample`,
+which on a shard gather locally, zero the rows this shard does not own and
+sum over the group, as the source's routed gather (seed_batch.py:265-289).
+A kernel cannot make that collective call in the middle of a walk, so on a
+CUDA device `collect_intv_flat` and `sa_batch` walk a shard by steps
+(kernels/fm_route.cu, K10's path, parallel/mesh.py): a launch advances every
+lane to its next two row reads, `route_gather` gathers the rows this shard
+owns, and their sum over the group feeds the next launch. K3's and K4's
+kernels refuse a shard.
+
 `collect_intv_flat`, `sa_batch` and `sa_batch_intervals` launch the CUDA
 kernels kernels/smem_seed.cu and kernels/sa_walk.cu on a CUDA device and run
 their plain versions on the CPU. torch on the CPU has no popcount and no `>>` or
@@ -86,7 +98,12 @@ class FMPair:
     sa_samples  [2, n_sa] int32 (narrow) | int64 (wide); rank-0 entry -1
     host_consts L2[0][0..3], L2[1][0..3], primary[0], primary[1] as ints,
                 which K4 takes by value (no read of the device tables)
-    Narrow indexes walk int32 ranks, wide ones (strands >= 2^31) int64."""
+    Narrow indexes walk int32 ranks, wide ones (strands >= 2^31) int64.
+
+    A shard (group set, `fm_shard`): tab is rows [shard_index * R, (shard_index
+    + 1) * R) of the [2 * n64_global, W] flattened table and sa_samples the
+    same slice of the [2 * n_sa_global] flattened samples; group is the
+    process group of the idx axis that holds the other shards."""
     tab: torch.Tensor
     L2: torch.Tensor
     primary: torch.Tensor
@@ -95,6 +112,10 @@ class FMPair:
     wide: bool
     sa_intv: int
     host_consts: tuple
+    n64_global: int = 0
+    n_sa_global: int = 0
+    group: object = None
+    shard_index: int = 0
 
     @property
     def rdt(self) -> torch.dtype:
@@ -137,6 +158,87 @@ class FMPair:
         return cls.from_numpy(tab, L2, prim, n, sa, wide, sa_intv, device)
 
 
+def fm_shard_arrays(fm: FMPair, n_shards: int):
+    """The source's host-side prep for index sharding: the [2, n64, W]
+    fused table flattened to [2*n64, W] rows and the [2, n_sa] SA samples
+    to [2*n_sa], each zero-padded so n_shards divides the leading axis (pad
+    rows lie past every addressable global id, so no query selects one).
+    Returns (tab_flat [Rp, W], sa_flat [Sp], n64, n_sa) on fm's device."""
+    n64 = int(fm.tab.shape[1])
+    W = int(fm.tab.shape[-1])
+    tab_flat = fm.tab.reshape(2 * n64, W)
+    Rp = -(-2 * n64 // n_shards) * n_shards
+    if Rp != 2 * n64:
+        tab_flat = torch.cat([tab_flat, tab_flat.new_zeros((Rp - 2 * n64, W))])
+    n_sa = int(fm.sa_samples.shape[1])
+    sa_flat = fm.sa_samples.reshape(-1)
+    Sp = -(-2 * n_sa // n_shards) * n_shards
+    if Sp != 2 * n_sa:
+        sa_flat = torch.cat([sa_flat, sa_flat.new_zeros(Sp - 2 * n_sa)])
+    return tab_flat, sa_flat, n64, n_sa
+
+
+def fm_shard(fm: FMPair, n_shards: int, index: int, group) -> FMPair:
+    """Shard `index` of n_shards of fm's tables (fm_shard_arrays), whose
+    other shards the ranks of `group` hold: the source's per-device FMPair
+    inside a shard_map body (parallel/mesh._local_fm). L2, primary and the
+    scalars stay whole."""
+    tab_flat, sa_flat, n64, n_sa = fm_shard_arrays(fm, n_shards)
+    R, S = tab_flat.shape[0] // n_shards, sa_flat.shape[0] // n_shards
+    return FMPair(tab=tab_flat[index * R:(index + 1) * R].clone(),
+                  L2=fm.L2, primary=fm.primary,
+                  sa_samples=sa_flat[index * S:(index + 1) * S].clone(),
+                  seq_len=fm.seq_len, wide=fm.wide, sa_intv=fm.sa_intv,
+                  host_consts=fm.host_consts, n64_global=n64,
+                  n_sa_global=n_sa, group=group, shard_index=index)
+
+
+def route_gather_plain(table: torch.Tensor, lo: int,
+                       g: torch.Tensor) -> torch.Tensor:
+    """table[g - lo] where this shard's rows [lo, lo + len(table)) hold
+    global row g, zero elsewhere (g < 0 included): the local half of the
+    source's routed gather. [n] + table.shape[1:] of table's dtype."""
+    R = table.shape[0]
+    loc = g - lo
+    ok = (loc >= 0) & (loc < R)
+    got = table[loc.clamp(0, R - 1)]
+    return torch.where(ok.reshape(ok.shape + (1,) * (got.dim() - 1)), got, 0)
+
+
+def _routed(fm: FMPair, table: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain routed gather: route_gather_plain summed over the shard
+    group. Exactly one shard owns each row, so every shard gets every row
+    (the source's masked gather and psum). The ranks of the group call it in
+    lockstep, with the same shapes."""
+    got = route_gather_plain(table, fm.shard_index * table.shape[0], g)
+    if got.numel() == 0:
+        return got
+    from ..parallel.mesh import group_sum
+    return group_sum(got, fm.group)
+
+
+def _tab_row(fm: FMPair, which: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """Fused-table rows [n, W] of strands `which` [n] at 64-base blocks
+    `blk` [n] (int64): one gather, or on a shard the routed gather."""
+    if fm.group is None:
+        return fm.tab[which, blk]
+    return _routed(fm, fm.tab, which * fm.n64_global + blk)
+
+
+def _sa_sample(fm: FMPair, which: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """SA samples [n] of strands `which` at sample indices `i` (int64)."""
+    if fm.group is None:
+        return fm.sa_samples[which, i]
+    return _routed(fm, fm.sa_samples, which * fm.n_sa_global + i)
+
+
+def _whole(fm: FMPair) -> None:
+    """K3 and K4 read the whole tables: a shard cannot go to them."""
+    if fm.group is not None:
+        raise ValueError("a shard of the tables walks by steps "
+                         "(kernels/fm_route.cu); K3 and K4 refuse it")
+
+
 # ---------------------------------------------------------------------------
 # plain torch version
 # ---------------------------------------------------------------------------
@@ -159,7 +261,8 @@ def _inv_psi_plain(fm: FMPair, which: torch.Tensor, kk: torch.Tensor):
     W = fm.tab.shape[-1]
     prim = fm.primary[which]
     j = kk - (kk >= prim).long()
-    word = fm.tab[which, j >> 6, W - 4 + ((j >> 4) & 3)].long() & _M32
+    row = _tab_row(fm, which, j >> 6)
+    word = row.gather(1, (W - 4 + ((j >> 4) & 3))[:, None])[:, 0].long() & _M32
     c = (word >> (((~j) & 15) << 1)) & 3
     nxt = fm.L2[which, c] + _occ4(fm, which, kk).gather(1, c[:, None])[:, 0]
     return torch.where(kk == prim, torch.zeros_like(nxt), nxt)
@@ -184,7 +287,7 @@ def sa_batch_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor,
     if steps is not None:
         steps.copy_(add)
     shift = fm.sa_intv.bit_length() - 1
-    return (add + fm.sa_samples[w, kk >> shift].long()).to(fm.rdt)
+    return (add + _sa_sample(fm, w, kk >> shift).long()).to(fm.rdt)
 
 
 def sa_batch_intervals_plain(fm: FMPair, which_row, x0_row, kmax_row,
@@ -213,7 +316,7 @@ def _occ4(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     W = fm.tab.shape[-1]
     ksafe = k.clamp(0, fm.seq_len - 1)
     kk = ksafe - (ksafe >= fm.primary[which]).long()
-    row = fm.tab[which, kk >> 6].long() & _M32             # [n, W]
+    row = _tab_row(fm, which, kk >> 6).long() & _M32      # [n, W]
     acc = row[:, :4]
     if fm.wide:
         acc = acc | (row[:, 4:8] << 32)
@@ -269,7 +372,7 @@ def occ_class_plain(fm: FMPair, which: torch.Tensor, k: torch.Tensor):
     which, k = which.long(), k.long()
     ksafe = k.clamp(0, fm.seq_len - 1)
     kk = ksafe - (ksafe >= fm.primary[which]).long()
-    row = fm.tab[which, kk >> 6].long() & _M32
+    row = _tab_row(fm, which, kk >> 6).long() & _M32
     pos = kk & 63
     cnt = [row[:, c] | (row[:, 4 + c] << 32) if fm.wide else row[:, c]
            for c in range(4)]
@@ -647,6 +750,7 @@ def _launch_seed(fm: FMPair, reads, lens, parents, params, S: int):
     sync. The interval lists live in shared memory; only a read so long
     that one lane's lists exceed an SM's shared memory gets device memory
     for them."""
+    _whole(fm)
     dev = kernels.check_cuda(fm.tab, reads, lens, parents)
     B, L = reads.shape
     kernels.check_lanes(B, lens, parents)
@@ -679,8 +783,9 @@ def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
     int32, rows [M, 5] of the rank dtype (start, end, x0, x1, size),
     overflow [B] bool), ordered by lane, start, end. A lane is flagged iff
     smem.collect_intv gives it more than S rows; a flagged lane has no
-    rows. K3 on CUDA (a warp per lane, a thread an extension), the plain
-    machine on the CPU."""
+    rows. K3 on CUDA (a warp per lane, a thread an extension), on a shard
+    of the tables the routed steps (_routed_seed), the plain machine on the
+    CPU."""
     if kernels.route(reads) == "plain":
         return collect_intv_flat_plain(fm, reads, lens, parents, opt, S)
     reads = reads.to(torch.int32).contiguous()
@@ -691,7 +796,8 @@ def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
     # the kernel reads reads[b, :lens[b]] and the strand tables of parents[b]
     if bool(((lens < 0) | (lens > L) | ((parents & ~1) != 0)).any()):
         raise ValueError("lens must lie in [0, L] and parents in {0, 1}")
-    rows, n, ov = _launch_seed(fm, reads, lens, parents, seed_params(opt), S)
+    launch = _launch_seed if fm.group is None else _routed_seed
+    rows, n, ov = launch(fm, reads, lens, parents, seed_params(opt), S)
     if B == 0:
         return n, rows.reshape(0, 5), ov
     n = n.long()
@@ -752,6 +858,7 @@ def _launch_sa(fm: FMPair, which, x0, kmax, off, out, counter) -> None:
     int32, x0 of the rank dtype, kmax int32 and off int64 or both None for
     the rank entry), into out, with counter two int32 words that are zero
     (the kernel leaves them zero). No host sync."""
+    _whole(fm)
     intervals = kmax is not None
     extra = (kmax, off) if intervals else ()
     dev = kernels.check_cuda(fm.tab, fm.sa_samples, which, x0, *extra, out,
@@ -773,14 +880,17 @@ def _launch_sa(fm: FMPair, which, x0, kmax, off, out, counter) -> None:
 
 def sa_batch(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Batched SA lookup: which [n] int32 strand ids, k [n] ranks (the rank
-    dtype) -> text positions [n] of the rank dtype. K4's rank entry on CUDA,
-    the plain walk on the CPU. No host sync."""
+    dtype) -> text positions [n] of the rank dtype. K4's rank entry on CUDA
+    (no host sync), the plain walk on the CPU; on a shard of the tables on
+    CUDA the routed steps (_routed_sa, a host sync a step)."""
     if kernels.route(k) == "plain":
         return sa_batch_plain(fm, which, k)
     which = which.to(torch.int32).contiguous()
     k = k.to(fm.rdt).contiguous()
     n = k.numel()
     kernels.check_lanes(n, which, k)
+    if fm.group is not None:
+        return _routed_sa(fm, which, k)
     out = torch.empty(n, dtype=fm.rdt, device=k.device)
     if n:
         counter = torch.zeros(2, dtype=torch.int32, device=k.device)
@@ -811,4 +921,152 @@ def sa_batch_intervals(fm: FMPair, which_row: torch.Tensor,
     if x0_row.numel() and total:
         counter = torch.zeros(2, dtype=torch.int32, device=x0_row.device)
         _launch_sa(fm, which_row, x0_row, kmax_row, off_row, out, counter)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K10: the routed walks over a shard of the tables (kernels/fm_route.cu)
+# ---------------------------------------------------------------------------
+
+# (wide, L2, primary, seq_len, n64, reads, lens, parents, B, L, msl,
+#  split_len, split_width, max_intv, start_width, S, states, rows_in, req,
+#  lists, rows, n, ov, live)
+_ROUTE_SEED_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int64] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 8)
+# (wide, L2, primary, seq_len, n64, which, k, n, shift, n_sa, mode, kk, add,
+#  rows_in, req, sample_req, samples, out, live)
+_ROUTE_SA_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+                 + [ctypes.c_void_p] * 8)
+# (local, rows, lo, words, req, n, out)
+_GATHER_SIG = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+
+
+# kernel -> fused rows the routed walks asked for since the caller set it
+# to 0 (the rows a step's collective delivers, summed over steps)
+ROUTED_ROWS = {"smem_route_step": 0, "sa_route_step": 0}
+
+
+def _route_lib():
+    lib = kernels.load("fm_route", {"smem_route_step": _ROUTE_SEED_SIG,
+                                    "sa_route_step": _ROUTE_SA_SIG,
+                                    "route_gather": _GATHER_SIG})
+    lib.smem_route_state_bytes.argtypes = []
+    lib.smem_route_list_bytes.argtypes = [ctypes.c_int]
+    for fn in (lib.smem_route_state_bytes, lib.smem_route_list_bytes):
+        fn.restype = ctypes.c_int64
+    return lib
+
+
+def route_gather(table: torch.Tensor, lo: int, g: torch.Tensor) -> torch.Tensor:
+    """route_gather_plain's contract: the rows of this shard's table (rows
+    [lo, lo + len(table)) of the global table) at global ids g [n] int64,
+    zero where another shard owns them. The kernel on CUDA (a thread a
+    32-bit word of the output), the plain version on the CPU."""
+    if kernels.route(g) == "plain":
+        return route_gather_plain(table, lo, g)
+    g = g.to(torch.int64).contiguous()
+    dev = kernels.check_cuda(table, g)
+    words = table.element_size() * (table.numel() // max(table.shape[0], 1)) // 4
+    out = torch.empty((g.numel(),) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=dev)
+    kernels.launch(_route_lib(), "route_gather", "route_gather", dev,
+                   kernels.ptr(table), table.shape[0], int(lo), int(words),
+                   kernels.ptr(g), g.numel(), kernels.ptr(out))
+    return out
+
+
+def _route_rows(fm: FMPair, req: torch.Tensor) -> torch.Tensor:
+    """The fused rows at global ids req [n, 2], from the shard that owns
+    each, summed over the group: [n, 2, W] int32."""
+    from ..parallel.mesh import group_sum
+    R = fm.tab.shape[0]
+    got = route_gather(fm.tab, fm.shard_index * R, req.reshape(-1))
+    return group_sum(got, fm.group).reshape(req.shape + (fm.tab.shape[-1],))
+
+
+def _routed_seed(fm: FMPair, reads, lens, parents, params, S: int):
+    """K3's contract (_launch_seed's outputs) on a shard of the tables, by
+    steps: smem_route_step advances every lane to its next extension, whose
+    two rows route_gather and the group's sum deliver to the next launch,
+    until no lane asks for rows. The ranks of the group run it in lockstep
+    on the same lanes. A host sync a step (the count of live lanes)."""
+    dev = kernels.check_cuda(fm.tab, reads, lens, parents)
+    B, L = reads.shape
+    lib = _route_lib()
+    W = fm.tab.shape[-1]
+    rows = torch.empty((B, S, 5), dtype=fm.rdt, device=dev)
+    n = torch.empty(B, dtype=torch.int32, device=dev)
+    ov = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return rows, n, ov
+    states = torch.zeros((B, int(lib.smem_route_state_bytes())),
+                         dtype=torch.uint8, device=dev)
+    lists = torch.empty((B, int(lib.smem_route_list_bytes(L))),
+                        dtype=torch.uint8, device=dev)
+    rows_in = torch.zeros((B, 2, W), dtype=torch.int32, device=dev)
+    req = torch.empty((B, 2), dtype=torch.int64, device=dev)
+    live = torch.zeros(1, dtype=torch.int32, device=dev)
+    P = kernels.ptr
+    while True:
+        live.zero_()
+        kernels.launch(lib, "smem_route_step", "smem_route_step", dev,
+                       int(fm.wide), P(fm.L2), P(fm.primary), fm.seq_len,
+                       fm.n64_global, P(reads), P(lens), P(parents), B, L,
+                       *params, S, P(states), P(rows_in), P(req), P(lists),
+                       P(rows), P(n), P(ov), P(live))
+        n_live = int(live.item())
+        if n_live == 0:
+            return rows, n, ov
+        ROUTED_ROWS["smem_route_step"] += 2 * n_live
+        rows_in = _route_rows(fm, req)
+
+
+def _routed_sa(fm: FMPair, which, k) -> torch.Tensor:
+    """sa_batch on a shard of the tables, by steps: sa_route_step walks
+    every job one inverse-Psi step on the two rows it asked for (gathered
+    and summed over the group as in _routed_seed), then each finished job's
+    SA sample comes the same way and a last launch adds the steps."""
+    from ..parallel.mesh import group_sum
+    dev = kernels.check_cuda(fm.tab, fm.sa_samples, which, k)
+    n = k.numel()
+    out = torch.empty(n, dtype=fm.rdt, device=dev)
+    if n == 0:
+        return out
+    lib = _route_lib()
+    W = fm.tab.shape[-1]
+    kk = torch.empty(n, dtype=torch.int64, device=dev)
+    add = torch.empty(n, dtype=torch.int64, device=dev)
+    rows_in = torch.zeros((n, 2, W), dtype=torch.int32, device=dev)
+    req = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    sample_req = torch.empty(n, dtype=torch.int64, device=dev)
+    live = torch.zeros(1, dtype=torch.int32, device=dev)
+    P = kernels.ptr
+
+    def step(mode, samples=None):
+        kernels.launch(lib, "sa_route_step", "sa_route_step", dev,
+                       int(fm.wide), P(fm.L2), P(fm.primary), fm.seq_len,
+                       fm.n64_global, P(which), P(k), n,
+                       fm.sa_intv.bit_length() - 1, fm.n_sa_global, mode,
+                       P(kk), P(add), P(rows_in), P(req), P(sample_req),
+                       P(samples) if samples is not None else None, P(out),
+                       P(live))
+    mode = 0
+    while True:
+        live.zero_()
+        step(mode)
+        mode = 1
+        n_live = int(live.item())
+        if n_live == 0:
+            break
+        ROUTED_ROWS["sa_route_step"] += 2 * n_live
+        rows_in = _route_rows(fm, req)
+    S_l = fm.sa_samples.shape[0]
+    samples = group_sum(route_gather(fm.sa_samples, fm.shard_index * S_l,
+                                     sample_req), fm.group)
+    step(2, samples.contiguous())
     return out

@@ -16,12 +16,18 @@ engine: `_pileup_window_fast` takes the device and always calls
 the fused window count (ops/pileup_count.pileup_window_counts: a CUDA
 kernel on the card, its plain version on the CPU) over inputs staged in
 reused host buffers; that is the source's BISCUIT_TPU_PILEUP=device path.
-The numpy bincount branch and the sharded `_mesh_counts` are left out.
-`run_windows` takes the windows of the `device` engine on a CUDA device in
-order in the process that owns the card, since a CUDA context does not
-survive a fork; native windows, and windows on the CPU, go to the source's
-fork pool. The rest is the source's code; tests/test_torch_engine.py holds
-the copy to it.
+A `Mesh` (parallel/mesh.py) is the `mesh` engine, the source's
+BISCUIT_TPU_PILEUP=mesh: `_device_counts` counts this rank's contiguous
+slice of the window's data with the same fused window count on the rank's
+device and sums the counts over the ranks (all_reduce). The source's
+`_mesh_counts` (K9's general entry twice, then sums and reshapes on the
+host) and its power-of-two buckets are not ported. The numpy bincount
+branch is left out. `run_windows` takes the windows of the
+`device` engine on a CUDA device, and every window of the `mesh` engine
+(whose ranks call their collectives in lockstep), in order in this process,
+since a CUDA context does not survive a fork; native windows, and windows
+of the `device` engine on the CPU, go to the source's fork pool. The rest
+is the source's code; tests/test_torch_engine.py holds the copy to it.
 """
 import math
 import os
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.pileup_count import CB, CM, DP, N_WORDS, pileup_window_counts
+from ..parallel.mesh import Mesh, group_sum, shard_bounds
 
 # seconds of the non-verbose windows in this process since reset_stages()
 # (the windows a fork pool's workers compute are counted in the workers and
@@ -591,10 +598,20 @@ def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
     device once as 6 bytes a datum (int32 site * n_bams + sample, uint8
     base * 3 + meth, the pass flag), staged in one host buffer; cm, cb and
     the depth are summed there and come back as int64 numpy arrays
-    cm [P, n_bams, 3], cb [P, n_bams, 7] and dp [P, n_bams]."""
+    cm [P, n_bams, 3], cb [P, n_bams, 7] and dp [P, n_bams]. On a Mesh this
+    rank stages and counts its contiguous slice of the window's data on its
+    device, and the [window, N_WORDS] counts are summed over the ranks of
+    the dp axis (all_reduce); the ranks call it in lockstep, window by
+    window, and the integer sums give the one-rank counts."""
     global _COUNT_SPAN
     entered = time.perf_counter()
-    n, window = len(p), P * n_bams
+    n_window, window = len(p), P * n_bams
+    mesh = device if isinstance(device, Mesh) else None
+    if mesh is not None:
+        lo, hi = shard_bounds(n_window, mesh)
+        p, sid, stat, passm = (a[lo:hi] for a in (p, sid, stat, passm))
+        device = mesh.device
+    n = len(p)
     host, dev, back = _staged(device, 6 * n, window * N_WORDS)
     h = host.numpy()
     sites = h[:4 * n].view(np.int32)
@@ -610,13 +627,15 @@ def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
     counts, n_wide = pileup_window_counts(
         dev[:4 * n].view(torch.int32), dev[4 * n:5 * n],
         dev[5 * n:6 * n].view(torch.bool), window)
+    if mesh is not None:
+        counts = group_sum(counts, mesh.group("dp"))
     if counts.device.type != "cpu":
         counts = back[:window * N_WORDS].view(window, N_WORDS).copy_(counts)
     c = counts.numpy().reshape(P, n_bams, N_WORDS)
     cm = c[..., CM].astype(np.int64)
     cb = c[..., CB].astype(np.int64)
     dp_arr = c[..., DP].astype(np.int64)
-    STAGES["data"] += n
+    STAGES["data"] += n_window
     STAGES["wide_chunks"] += n_wide or 0
     _COUNT_SPAN = (entered, time.perf_counter())
     return cm, cb, dp_arr
@@ -747,10 +766,11 @@ def _pool_window1(job):
 def run_windows(bams, rs, conf, windows, n_procs, device):
     """Yield (window, text, bs, cs) for each (tid, name, beg, end) window, in
     order: computed by a fork pool of n_procs workers when n_procs > 1 and
-    the windows run on the C++ engine (device None) or on the CPU, else one
-    after the other in this process."""
+    the windows run on the C++ engine (device None) or on the CPU, else (a
+    CUDA device, a Mesh) one after the other in this process."""
     global _POOL_G
-    if (device is not None and device.type != "cpu") or n_procs <= 1:
+    if isinstance(device, Mesh) or n_procs <= 1 or (
+            device is not None and device.type != "cpu"):
         for w in windows:
             yield (w, *_window1(bams, rs, conf, device, w))
         return

@@ -146,6 +146,26 @@ Phases, one line each (more for the kernel table):
      (CUDA_VISIBLE_DEVICES=); a BAM flipped twice holds the input's
      records; cinread_func's vectorized counts equal its walk's; the wall
      and reads/s or lines/s of each run
+  7. K10, multi-device over torch.distributed, and the port's driver entry,
+     on phase 6's data: entry()'s batched K3 step on the card equal to its
+     plain version (torch.equal); dryrun_multichip(2), whose two spawned
+     ranks share the card under gloo (NCCL only where each rank has a card
+     of its own: it cannot run on one card) and hold each of its eight
+     stages to its one-rank run, with each stage's seconds, and K1, K6, K7,
+     K9's general entry and stage 8's index-sharded walks
+     (kernels/fm_route.cu: smem_route_step, sa_route_step, route_gather)
+     launched by the ranks' sharded calls (the counts each rank reports,
+     added to the kernel table); the ranks also hold stage 8's kernels to
+     their plain versions on their shards, whose times give those rows;
+     then, each in processes of its own on the card: shard_align -n 2 on
+     phase 6's 40,000 reads under the default engine, its SAM body equal
+     to phase 4d's one-process SAM, each worker launching K3 and K4's
+     interval entry (the launches the CLI reports on stderr);
+     shard_pileup -n 2 and `pileup` under the mesh engine on 2 ranks
+     started with torchrun's variables, each equal to phase 6's VCF
+     (without ##program) and _meth_average.tsv, each mesh rank launching
+     K9's fused entry once a window; dist_run --ns 1,2 on 8192 of phase
+     6's reads, with its hashes equal across n and each n's wall
   5. (last) neither jax nor any module of the JAX package was imported
 Then a JSON line with the kernel table and, last, the result line. Any
 failure raises and exits nonzero; nothing falls back to the CPU.
@@ -1192,6 +1212,214 @@ def phase_6d(work, card, gfa, gfq, gbam, vcf, fa, fq1, fq2):
     say(f"[6d] {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 7: the kernels whose launches the dry run's ranks must show (the
+# last three: the index-sharded walks of stage 8, kernels/fm_route.cu), and
+# the reads of phase 6 that dist_run seeds
+K10_KERNELS = ("sw_extend", "chain_scan", "sw_local", "pileup_count",
+               "smem_route_step", "sa_route_step", "route_gather")
+ROUTED = {"smem_route_step": "the routed seeder",
+          "sa_route_step": "the routed SA walk",
+          "route_gather": "the local half of a step's gather"}
+DIST_READS = 8192
+
+
+def cli_launches(text, who):
+    """The launches a CLI process reported on stderr ({} if none)."""
+    tag = f"[{who}] kernel launches: "
+    found = [json.loads(ln[len(tag):]) for ln in text.splitlines()
+             if ln.startswith(tag)]
+    return found[-1] if found else {}
+
+
+def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows):
+    """7. K10 and the driver entry (see the module's docstring). table: the
+    kernel rows, whose launches the phase adds to; gwant: phase 6's SAM
+    body, which phase 4d's one-process runs equal; n_windows: phase 6's
+    windows, each of which every rank of the mesh must count on the card."""
+    import socket
+
+    import torch
+
+    from biscuit_tpu_torch import kernels
+    from biscuit_tpu_torch.config import MemOpt
+    from biscuit_tpu_torch.graft_entry import dryrun_multichip, entry
+    from biscuit_tpu_torch.ops.seed_batch import collect_intv_flat_plain
+    t_phase = time.perf_counter()
+
+    # entry(): one batched K3 step on the card, against its plain version
+    step, args = entry()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = step(*args)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    n_k3 = kernels.LAUNCHES.get("smem_seed", 0)
+    err = compare("entry() step", got, collect_intv_flat_plain(
+        args[0], *args[1:], MemOpt()))
+    if n_k3 != 1 or got[2].any():
+        raise AssertionError(f"entry() launched K3 {n_k3} times, or flagged "
+                             f"{int(got[2].sum())} lanes")
+    say(f"[7] entry(): {tuple(args[1].shape)} reads on {args[1].device}, "
+        f"{got[1].shape[0]} seed rows, K3 launched once == plain (max |d| "
+        f"{err}), {t_step * 1e3:.3f} ms with its compaction [{card}]")
+
+    # the dry run: 2 ranks spawned here, sharing the card
+    res = dryrun_multichip(2)
+    why = (f"the ranks share {res['device']}" if not res["nccl"]
+           else "a card a rank")
+    say(f"[7] dryrun_multichip(2): backend {res['backend']} ({why}; "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}); NCCL "
+        f"{'ran' if res['nccl'] else 'did not run'}; each stage == its "
+        f"one-rank run in both ranks; wall {res['wall']:.1f} s with the "
+        f"spawn [{card}]")
+    say("[7] dryrun stage seconds (the slower rank): " + json.dumps(
+        {k: round(v, 4) for k, v in res["seconds"].items()}))
+    say(f"[7] dryrun launches of the ranks' sharded calls: "
+        f"{json.dumps(res['launches'])}")
+    for name in K10_KERNELS:
+        if res["launches"].get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched in the dry run's "
+                                 f"ranks: {res['launches']}")
+    for r in table:
+        if r["name"] in K10_KERNELS:
+            r["launches"] += res["launches"][r["name"]]
+        if r["name"] == "smem_seed":
+            r["launches"] += n_k3 + res["launches"].get("smem_seed", 0)
+    # stage 8's kernels, held to their plain versions in the ranks on each
+    # rank's shard (rank 0's numbers): the walks' times are whole calls,
+    # every step's launch and collective in them
+    for name, what in ROUTED.items():
+        err, ms, plain_ms, n_bytes, n_ops = res["routed"][name]
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        table.append({"name": name, "route": "cuda",
+                      "source": "biscuit_tpu_torch/kernels/fm_route.cu",
+                      "replaces": "biscuit_tpu/ops/seed_batch.py:2097 (and "
+                                  "the routed gather of _tab_row, :265-289)",
+                      "launches": res["launches"][name], "max_abs_err": err,
+                      "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                      "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+                      "library_ms": None, "paths": ["7"]})
+        say(f"[7] {name} ({what}, stage 8 on rank 0's shard): kernel == "
+            f"plain (max |d| {err}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, "
+            f"{n_ops} operations) [{card}]")
+
+    # the drivers, each in processes of its own on the card, under the
+    # default engines
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BISCUIT_TPU_TORCH_ENGINE", "BISCUIT_TPU_TORCH_PILEUP")}
+    env["PYTHONPATH"] = REPO
+    logs = os.path.join(work, "shard_logs")
+    os.makedirs(logs, exist_ok=True)
+
+    def run(argv, **more):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", *argv], cwd=REPO,
+                           env=dict(env, **more), capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            tails = "".join(open(os.path.join(logs, f)).read()[-1500:]
+                            for f in sorted(os.listdir(logs)))
+            raise AssertionError(f"{argv[:2]} exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]} {tails}")
+        return r, time.perf_counter() - t0
+
+    r, wall = run(["biscuit_tpu_torch.tools.shard_align", "-n", "2", gfa, gfq],
+                  BT_SHARD_WORKER_LOGS=logs)
+    body = [ln for ln in r.stdout.splitlines() if not ln.startswith("@")]
+    if body != gwant:
+        raise AssertionError("shard_align -n 2: SAM differs from one process's")
+    # each worker's launches, from its log: K3 and K4's interval entry
+    workers = []
+    for i in range(2):
+        with open(os.path.join(logs, f"worker.{i}.log")) as f:
+            workers.append(cli_launches(f.read(), "main_align"))
+        for name in ("smem_seed", "sa_walk_intervals"):
+            if workers[i].get(name, 0) < 1:
+                raise AssertionError(f"shard_align worker {i} launched no "
+                                     f"{name}: {workers[i]}")
+    for r in table:
+        r["launches"] += sum(w.get(r["name"], 0) for w in workers)
+    say(f"[7] shard_align -n 2 (default engine, 2 workers on the card): "
+        f"{PLP_READS} reads, SAM body == phase 4d's one process; wall "
+        f"{wall:.2f} s = {PLP_READS / wall:.1f} reads/s with both workers' "
+        f"start; the workers' launches {json.dumps(workers)} [{card}]")
+
+    def vcf_lines(path):
+        with open(path) as f:
+            return [ln for ln in f if not ln.startswith("##program")]
+
+    def same_vcf(path, what):
+        with open(path + "_meth_average.tsv") as f, \
+                open(vcf + "_meth_average.tsv") as g:
+            if vcf_lines(path) != vcf_lines(vcf) or f.read() != g.read():
+                raise AssertionError(f"{what}: VCF or _meth_average.tsv "
+                                     "differs from phase 6's")
+
+    svcf = os.path.join(work, "shard.vcf")
+    _r, wall = run(["biscuit_tpu_torch.tools.shard_pileup", "-n", "2", "-o",
+                    svcf, gfa, gbam])
+    same_vcf(svcf, "shard_pileup -n 2")
+    say(f"[7] shard_pileup -n 2 (a chromosome a worker, device engine): VCF "
+        f"and _meth_average.tsv == phase 6's; wall {wall:.2f} s [{card}]")
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    mvcf = os.path.join(work, "mesh.vcf")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "biscuit_tpu_torch.cli", "pileup", "-o", mvcf,
+         gfa, gbam], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(env, BISCUIT_TPU_TORCH_PILEUP="mesh",
+                            WORLD_SIZE="2", RANK=str(k), LOCAL_RANK=str(k),
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+        for k in range(2)]
+    try:  # a rank that fails leaves the other waiting in a collective
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    joined, ranks = [], []
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0 or so:
+            raise AssertionError(f"pileup mesh rank exited {p.returncode}: "
+                                 f"{se[-2000:]}")
+        joined += [ln for ln in se.splitlines() if "[main_pileup] mesh" in ln]
+        ranks.append(cli_launches(se, "main_pileup"))
+    same_vcf(mvcf, "pileup under mesh on 2 ranks")
+    # each rank counts its slice of every window with K9's fused entry
+    if any(k.get("pileup_window_counts", 0) != n_windows for k in ranks):
+        raise AssertionError(f"a mesh rank did not count each of the "
+                             f"{n_windows} windows on the card: {ranks}")
+    for r in table:
+        r["launches"] += sum(k.get(r["name"], 0) for k in ranks)
+    say(f"[7] pileup under mesh, 2 ranks as torchrun starts them: "
+        f"{'; '.join(joined)}; rank 0's VCF and _meth_average.tsv == phase "
+        f"6's; the ranks' launches {json.dumps(ranks)}; wall {wall:.2f} s "
+        f"[{card}]")
+
+    out = os.path.join(work, "dist_scaling.json")
+    r, wall = run(["biscuit_tpu_torch.tools.dist_run", "--ns", "1,2",
+                   "--reads", str(DIST_READS), "--reps", "3", "--data",
+                   os.path.dirname(gfa), "--out", out])
+    with open(out) as f:
+        dist = json.load(f)
+    if [t["n_procs"] for t in dist["table"]] != [1, 2] or any(
+            t["launches"].get("smem_seed", 0) < 1 for t in dist["table"]):
+        raise AssertionError(f"dist_run: {dist}")
+    say(f"[7] dist_run --ns 1,2 ({dist['workload']}; {dist['parity']}): "
+        + "; ".join(f"n={t['n_procs']} {t['backend']} on {t['device']}: "
+                    f"{t['t_per_rep_s']:.4f} s a step, wall {t['wall_s']:.1f}"
+                    f" s, efficiency {t['efficiency']:.3f}"
+                    for t in dist["table"])
+        + f"; {wall:.1f} s in all [{card}]")
+    say(f"[7] {time.perf_counter() - t_phase:.1f} s")
+
+
 def smoke(work: str) -> int:
     import numpy as np
     import torch
@@ -1209,8 +1437,8 @@ def smoke(work: str) -> int:
     from biscuit_tpu_torch import native
     t0 = time.perf_counter()
     libs = (sw_extend._lib, sw_global._lib, seed_batch._lib,
-            seed_batch._seed_lib, chain_batch._lib, sw_local._lib,
-            pileup_count._lib)
+            seed_batch._seed_lib, seed_batch._route_lib, chain_batch._lib,
+            sw_local._lib, pileup_count._lib)
 
     def native_lib():
         """g++ of the native library beside the nvcc builds: seconds."""
@@ -1981,9 +2209,10 @@ def smoke(work: str) -> int:
     (ms, raw_ms, pms, lms), tag, moved, ops = k9
     row("pileup_count", "pileup_count.cu", "biscuit_tpu/parallel/mesh.py:118",
         err, ms, pms, tag + f" (+ 2 samples, 1 code, int32, refusals: equal); "
-        f"the general entry, which the pileup path no longer calls: the "
-        f"wrapper {ms:.4f} ms, the launch alone {raw_ms:.4f} ms",
-        moved, ops, library_ms=lms, paths=())
+        f"the general entry, whose path is K10's count merge (phase 7: the "
+        f"dry run's stage 3): the wrapper {ms:.4f} ms, the launch alone "
+        f"{raw_ms:.4f} ms",
+        moved, ops, library_ms=lms, paths=("7",))
 
     # K9's fused entry, the pileup path's call: cm, cb and the depth of a
     # window in one launch, on the inputs the engine stages (int32 site,
@@ -2856,6 +3085,7 @@ def smoke(work: str) -> int:
     phase_6b(work, card, pileup, vcf_lines, gfa, gsam, gbam, vcf_gpu,
              len(sites), [t_plp, t_plp2])
     phase_6d(work, card, gfa, gfq, gbam, vcf_gpu, fa, fq1, fq2)
+    phase_7(work, card, table, gfa, gfq, gbam, vcf_gpu, gwant, n_windows)
 
     # 5. neither jax nor the JAX package was imported
     theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")

@@ -462,7 +462,8 @@ class _NoArgs(ast.NodeTransformer):
 
 
 class _Renamed(ast.NodeTransformer):
-    """Replaces each string constant that is a key of `names` by its value."""
+    """Replaces each string constant, and each keyword argument's name,
+    that is a key of `names` by its value."""
 
     def __init__(self, names):
         self.names = names
@@ -472,17 +473,29 @@ class _Renamed(ast.NodeTransformer):
             node.value = self.names[node.value]
         return node
 
+    def visit_keyword(self, node):
+        if node.arg in self.names:
+            node.arg = self.names[node.arg]
+        self.generic_visit(node)
+        return node
+
 
 # the port's own environment switches, where its copies read the JAX
-# package's: a CLI run of either package never steers the other
+# package's, and the CLI module the sharded drivers start: a run of either
+# package never steers the other
 SWITCHES = {"BISCUIT_TPU_STREAMS": "BISCUIT_TPU_TORCH_STREAMS",
-            "BISCUIT_TPU_PILEUP": "BISCUIT_TPU_TORCH_PILEUP"}
+            "BISCUIT_TPU_PILEUP": "BISCUIT_TPU_TORCH_PILEUP",
+            "BISCUIT_TPU_FASTQ_STRIDE": "BISCUIT_TPU_TORCH_FASTQ_STRIDE",
+            "BISCUIT_TPU_PES_EXCHANGE": "BISCUIT_TPU_TORCH_PES_EXCHANGE",
+            "BISCUIT_TPU_MA_RAW": "BISCUIT_TPU_TORCH_MA_RAW",
+            "biscuit_tpu.cli": "biscuit_tpu_torch.cli"}
 
 
 def _code(path, drop=(), args=(), renamed=()):
     """Module body as AST dumps, without the docstring, any import
-    statement, the top-level names in `drop` (functions, assignments, and
-    calls such as `sys.path.insert` standing as statements) and the
+    statement, the top-level names in `drop` (functions, classes,
+    assignments, and calls such as `sys.path.insert` standing as
+    statements) and the
     parameters and keyword arguments named in `args`, with the switches
     named in `renamed` read as the port's (SWITCHES)."""
     with open(path) as f:
@@ -492,7 +505,8 @@ def _code(path, drop=(), args=(), renamed=()):
     for i, node in enumerate(tree.body):
         if i == 0 and isinstance(node, ast.Expr):
             continue
-        if isinstance(node, ast.FunctionDef) and node.name in drop:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
+                and node.name in drop:
             continue
         if isinstance(node, ast.Assign) and any(
                 getattr(t, "id", None) in drop for t in node.targets):
@@ -553,11 +567,12 @@ COPIES = {
     # the engine is picked by the `device` argument (None: the C++ window
     # engine of pileup/native.py, as the source's default; a torch device:
     # the counts from the port's fused window count over reused staging
-    # buffers, test_pileup_window_fast_differs_only_in_its_counts), not by
-    # BISCUIT_TPU_PILEUP; no numpy bincount branch, no sharded counts; the
-    # device engine's windows run in-process on a CUDA device, and native
-    # windows in the fork pool on any device (run_windows, the source's
-    # run_windows_pooled); stage timers
+    # buffers, test_pileup_window_fast_differs_only_in_its_counts; a Mesh:
+    # the same fused count on this rank's slice of the window's data, summed
+    # over the ranks), not by BISCUIT_TPU_PILEUP; no numpy bincount branch,
+    # no _mesh_counts; the device engine's windows run in-process on a CUDA
+    # device, and so do a mesh's, native windows in the fork pool on any
+    # device (run_windows, the source's run_windows_pooled); stage timers
     "pileup/engine": ("pileup/engine.py", (
         "pileup_window", "_pileup_window_fast", "_device_counts",
         "_mesh_counts", "_MESH_FNS", "_pool_window1", "run_windows_pooled",
@@ -587,6 +602,25 @@ COPIES = {
     "scripts/pybiscuit": (("scripts/pybiscuit.py",
                            "biscuit_tpu_torch/scripts/pybiscuit.py"),
                           ("sys.path.insert",)),
+    # the process allgather is torch.distributed's (TorchProcessAllgather for
+    # JaxProcessAllgather), and from_env reads the port's switch, whose
+    # second form is `torch`; FileAllgather is the source's
+    "parallel/exchange": ("parallel/exchange.py", (
+        "JaxProcessAllgather", "TorchProcessAllgather", "from_env")),
+    # the sharded drivers, inside the port's package: their workers run the
+    # port's CLI under the port's switches; shard_align's _spool reads the
+    # source with the port's reader and needs no sys.path entry (the driver
+    # runs with -m from the repository's root); shard_pileup's REPO lies one
+    # directory further up
+    "tools/shard_align": (("tools/shard_align.py",
+                           "biscuit_tpu_torch/tools/shard_align.py"),
+                          ("_spool",), (),
+                          ("biscuit_tpu.cli", "BISCUIT_TPU_FASTQ_STRIDE",
+                           "BISCUIT_TPU_PES_EXCHANGE")),
+    "tools/shard_pileup": (("tools/shard_pileup.py",
+                            "biscuit_tpu_torch/tools/shard_pileup.py"),
+                           ("REPO",), (),
+                           ("biscuit_tpu.cli", "BISCUIT_TPU_MA_RAW")),
 }
 
 
@@ -681,6 +715,11 @@ def test_port_has_no_import_of_jax_or_the_jax_package():
     hits = []
     files = _port_sources()
     assert len(files) > 40
+    walked = {os.path.relpath(f, os.path.join(REPO, "biscuit_tpu_torch"))
+              for f in files}
+    assert {"graft_entry.py", "parallel/mesh.py", "parallel/exchange.py",
+            "tools/shard_align.py", "tools/shard_pileup.py",
+            "tools/dist_run.py"} <= walked
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())

@@ -727,3 +727,27 @@ def repeat_dataset(d, unit_len=150, copies=80, flank=20000, n_reads=40,
             read = genome[b:b + read_len].replace("C", "T")
             f.write(f"@r{i}\n{read}\n+\n{'I' * read_len}\n")
     return fa, fq, build_index(fa, prefix=fa)
+
+
+def allgather_rank(rank, n, out_dir):
+    """One of n gloo ranks (a file store in out_dir) that pools lists of
+    unequal length, rank r's range(10 r, 10 r + 3 + r), through
+    TorchProcessAllgather and through the exchange's from_env under
+    BISCUIT_TPU_TORCH_PES_EXCHANGE=torch, then [0, 1] from rank 1 alone,
+    then nothing from every rank; writes the four results to
+    out_dir/rank<r>.txt, a line each."""
+    import torch.distributed as dist
+
+    from biscuit_tpu_torch.parallel import exchange
+    dist.init_process_group("gloo", rank=rank, world_size=n,
+                            init_method="file://" + os.path.join(out_dir,
+                                                                 "store"))
+    mine = list(range(rank * 10, rank * 10 + 3 + rank))
+    got = [exchange.TorchProcessAllgather()(mine)]
+    os.environ["BISCUIT_TPU_TORCH_PES_EXCHANGE"] = "torch"
+    got.append(exchange.from_env()(mine))
+    got.append(exchange.TorchProcessAllgather()([0, 1] if rank == 1 else []))
+    got.append(exchange.TorchProcessAllgather()([]))
+    with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+        f.write("\n".join(" ".join(map(str, g)) for g in got))
+    dist.destroy_process_group()
