@@ -48,6 +48,7 @@ wide instance, on the card like the others.
 import contextlib
 import copy
 import ctypes
+import functools
 import math
 import os
 import threading
@@ -165,12 +166,19 @@ def _sa_lookup(pos, off, kmax, r0, fm):
 
 
 class DeviceAligner:
-    def __init__(self, st: AlignerState, device, fmpair: FMPair = None):
-        """`fmpair`: the index's tables already on `device` (the hybrid
-        engine's seeder shares its own), else built here."""
+    def __init__(self, st: AlignerState, device, mesh=None):
+        """With a `mesh` (a make_mesh2 grid, BISCUIT_TPU_TORCH_INDEX_SHARD)
+        the seed stage runs on this rank's shard of the tables over the
+        grid (`seeder`: parallel.mesh.index_sharded_seeder of fmpair, in
+        place of collect_intv_flat on fmpair); the SA walk stays on the
+        whole tables, as in the JAX engine."""
         self.st = st
         self.device = torch.device(device)
-        self.fmpair = fmpair or FMPair.from_index(st.idx, self.device)
+        self.fmpair = FMPair.from_index(st.idx, self.device)
+        self.seeder = None
+        if mesh is not None:
+            from ..parallel.mesh import index_sharded_seeder
+            self.seeder = index_sharded_seeder(mesh, self.fmpair)
         self._mats_cache = None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -204,7 +212,7 @@ class DeviceAligner:
             parents = self._tensor(parents)
             seeds, overflow, lane_of, rows = collect_intv_batch(
                 fmp, self._tensor(q), self._tensor(lens), parents, opt,
-                on_device=True)
+                on_device=True, seeder=self.seeder)
             # lanes over the seeder's S rows: the exact host seeder
             for i in np.nonzero(overflow)[0]:
                 s, p = lanes[i]
@@ -633,7 +641,15 @@ class DeviceSeeder:
 
     On CUDA all of the seeder's device work runs on a stream of its own,
     `self.stream`, so that it may run in a thread of its own beside any work
-    of the default stream."""
+    of the default stream.
+
+    With a `mesh` (a make_mesh2 grid, BISCUIT_TPU_TORCH_INDEX_SHARD) the
+    seeder runs on this rank's shard of the tables over the grid
+    (parallel.mesh.index_sharded_seeder: lanes split over dp, rows routed
+    over idx, kernels/fm_route.cu on the card), and K4's interval entry on
+    the whole tables, as the JAX DeviceSeeder resolves SA positions on its
+    whole fmpair. Every rank of the grid makes the same calls in the same
+    order."""
 
     # occurrences a seed resolved on the device; the C++ engine walks the
     # rest. With an injection the C++ engine skips its own pre-resolution
@@ -646,11 +662,12 @@ class DeviceSeeder:
     # device memory one seeder call may take (seed_lane_bytes a lane)
     SWEEP_BYTES = 1 << 30
 
-    def __init__(self, st: AlignerState, device):
+    def __init__(self, st: AlignerState, device, mesh=None):
         self.st = st
         self.device = torch.device(device)
-        self.fmpair = FMPair.from_index(st.idx, self.device)
-        self._aligner = None
+        # the device engine shares its tables and seeder (aligner())
+        self._aligner = DeviceAligner(st, device, mesh)
+        self.fmpair, self.seeder = self._aligner.fmpair, self._aligner.seeder
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
@@ -678,14 +695,12 @@ class DeviceSeeder:
     def aligner(self) -> DeviceAligner:
         """The device engine on the seeder's device and tables, for the
         batches the native engine's fused entries cannot take (fused)."""
-        if self._aligner is None:
-            self._aligner = DeviceAligner(self.st, self.device, self.fmpair)
         return self._aligner
 
     def sweep_lanes(self, L: int) -> int:
         """Lanes of read length L that one seeder call takes."""
         return max(1, self.SWEEP_BYTES // seed_lane_bytes(
-            L, self.fmpair.wide, self.device))
+            L, self.fmpair.wide, self.device, routed=self.seeder is not None))
 
     def build_injection(self, opt: MemOpt, seqs, pe: bool):
         """(SeedInjC, keepalive) for clipped reads `seqs`, or None for no
@@ -729,14 +744,14 @@ class DeviceSeeder:
         T = lambda a: torch.from_numpy(a).to(dev)
         reads, lens, key = T(reads), T(lens).int(), T(keys)
         step = self.sweep_lanes(L)
+        seed = self.seeder or functools.partial(collect_intv_flat, fmp)
         lane_parts, row_parts, ov_parts = [], [], []
         for lo in range(0, B, step):
             k = key[lo:lo + step]
             q = reads[k >> 1].int()
             par = (k & 1).bool()[:, None]
             q = torch.where(par & (q == 1), 3, torch.where(~par & (q == 2), 0, q))
-            lane_of, rows, ov = collect_intv_flat(fmp, q, lens[k >> 1],
-                                                  (k & 1).int(), opt)
+            lane_of, rows, ov = seed(q, lens[k >> 1], (k & 1).int(), opt)
             lane_parts.append(lane_of.long() + lo)
             row_parts.append(rows)
             ov_parts.append(ov)
@@ -804,7 +819,8 @@ def fused(opt: MemOpt, seqs) -> bool:
 
 def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
                         pes0=None, rg_id: str = "", engine=None,
-                        seeder: DeviceSeeder = None, device=None) -> None:
+                        seeder: DeviceSeeder = None, device=None,
+                        seed_only: bool = False) -> None:
     """mem_process_seqs of the hybrid engine: the device seeds
     (DeviceSeeder) and the native engine (native_engine.process_seqs_native)
     chains, extends and writes SAM. Pass a `seeder` or the `device` to
@@ -824,7 +840,12 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     A chunk the fused C++ entries cannot take whole (fused) runs through
     the device engine (process_seqs_device) on the seeder's device and
     tables instead: there the C++ engine would seed on the host and drop
-    the card's rows. The SAM is the same either way."""
+    the card's rows. The SAM is the same either way.
+
+    seed_only: build every injection as above, in the same order and from
+    the same threads, and skip the native engine (a rank other than 0 of
+    an index-sharded run, whose seeding calls must meet rank 0's); a chunk
+    for the device engine runs there whole all the same."""
     import queue
     from .native_engine import NativeAligner, process_seqs_native
     nat = engine if isinstance(engine, NativeAligner) else NativeAligner(st)
@@ -839,6 +860,8 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
         return
 
     def native(sub, lo, inj):
+        if seed_only:
+            return
         with _stage("native"):
             process_seqs_native(opt, st, sub, n_processed + lo, pes0, rg_id,
                                 engine=nat, inj_pre=inj, pre_clipped=True)

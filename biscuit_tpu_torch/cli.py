@@ -13,7 +13,12 @@ default), which makes the count matrices of every window
 summed over the ranks of a torchrun process group, when named. The sharded
 drivers (biscuit_tpu_torch/tools/) steer `align` with
 BISCUIT_TPU_TORCH_FASTQ_STRIDE and BISCUIT_TPU_TORCH_PES_EXCHANGE and read
-`pileup`'s raw stats from BISCUIT_TPU_TORCH_MA_RAW. `vcf2bed` and
+`pileup`'s raw stats from BISCUIT_TPU_TORCH_MA_RAW. Under
+BISCUIT_TPU_TORCH_INDEX_SHARD=n `align`'s device engines seed on an FM
+index sharded over n ranks (the source's BISCUIT_TPU_INDEX_SHARD): started
+as WORLD_SIZE ranks with torchrun's variables, a multiple of n above 1 (any
+other WORLD_SIZE exits 1), every rank reads every chunk and makes the same
+seeding calls, and rank 0 alone writes the SAM and the [M::...] lines. `vcf2bed` and
 `mergecg` run their C++ line filters unless
 BISCUIT_TPU_TORCH_STREAMS=python; `epiread`
 runs the C++ raw-BAM window engine on BAM input unless
@@ -88,6 +93,25 @@ ENGINES = ("device", "device-jax", "native", "host")
 # insert-size exchange across ranks (dir:rank:n)
 STRIDE_ENV = "BISCUIT_TPU_TORCH_FASTQ_STRIDE"
 EXCHANGE_ENV = "BISCUIT_TPU_TORCH_PES_EXCHANGE"
+
+
+class _NoInfo:
+    """stderr of a rank other than 0 of an index-sharded `align`: every
+    line but the [M::...] ones, which rank 0 alone prints."""
+
+    def __init__(self, err):
+        self.err, self.part = err, ""
+
+    def write(self, text):
+        self.part += text
+        *lines, self.part = self.part.split("\n")
+        for ln in lines:
+            if not ln.startswith("[M::"):
+                self.err.write(ln + "\n")
+        return len(text)
+
+    def flush(self):
+        self.err.flush()
 
 
 def main_align(argv):
@@ -363,6 +387,22 @@ Input/output options:
         engine = "host"
         opt.n_threads = 1
     device = resolve() if engine in ("device", "device-jax") else None
+    # BISCUIT_TPU_TORCH_INDEX_SHARD=n: the device engines seed on this
+    # rank's shard of the tables (parallel.mesh.index_shard_mesh); as in
+    # the source, the switch steers nothing else
+    mesh, writes = None, True
+    if device is not None:
+        from .parallel.mesh import index_shard_mesh
+        try:
+            mesh = index_shard_mesh(device)
+        except ValueError as e:
+            print(f"[E::main_align] {e}", file=sys.stderr)
+            return 1
+        if mesh is not None:
+            import torch.distributed as dist
+            device, writes = mesh.device, dist.get_rank() == 0
+            if not writes:
+                sys.stderr = _NoInfo(sys.stderr)
 
     idx = BisIndex.load(args[0])
     if verbose >= 3:
@@ -377,7 +417,7 @@ Input/output options:
             ann.is_alt = 0
 
     st = AlignerState(idx)
-    out = sys.stdout
+    out = sys.stdout if writes else open(os.devnull, "w")
 
     pg = (f"@PG\tID:biscuit_tpu\tPN:biscuit_tpu\tVN:{__version__}"
           f"\tCL:biscuit_tpu align {' '.join(argv)}")
@@ -386,9 +426,9 @@ Input/output options:
 
     dev = nat = sdr = None
     if engine == "device":
-        nat, sdr = NativeAligner(st), DeviceSeeder(st, device)
+        nat, sdr = NativeAligner(st), DeviceSeeder(st, device, mesh)
     elif engine == "device-jax":
-        dev = DeviceAligner(st, device)
+        dev = DeviceAligner(st, device, mesh=mesh)
     elif engine == "native":
         nat = NativeAligner(st)
 
@@ -397,7 +437,7 @@ Input/output options:
         ct0, rt0 = _time.process_time(), _time.perf_counter()
         if engine == "device":
             process_seqs_hybrid(opt, st, seqs, n_processed, pes0, rg_id,
-                                engine=nat, seeder=sdr)
+                                engine=nat, seeder=sdr, seed_only=not writes)
         elif engine == "device-jax":
             process_seqs_device(opt, st, seqs, n_processed, pes0, rg_id,
                                 engine=dev)
@@ -422,6 +462,7 @@ Input/output options:
         for s in seqs:
             if s.sam:
                 out.write(s.sam)
+        _leave(mesh)
         return 0
 
     it1 = fastq_iter(args[1])
@@ -493,18 +534,36 @@ Input/output options:
                 out.write(s.sam)
     rt.join()
     report_launches("main_align")
+    _leave(mesh)
     return 0
+
+
+def _leave(mesh) -> None:
+    """Leave the process group an index-sharded `align` joined."""
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def report_launches(who: str) -> None:
     """The kernels this process launched, as one line on stderr, where it
     launched any (a run on the card): what a check of the sharded drivers
-    and of the mesh's ranks reads."""
+    and of the mesh's ranks reads. Where a routed walk ran (an index sharded
+    over ranks), a second line: for each step kernel its walks, their steps
+    and the rows they asked for, and the walks' whole calls in ms
+    (seed_batch.ROUTED_CALLS, ROUTED_STEPS, ROUTED_ROWS, ROUTED_MS)."""
+    import json
     k = sys.modules.get(__package__ + ".kernels")
     launched = {n: v for n, v in (k.LAUNCHES.items() if k else ()) if v}
     if launched:
-        import json
         print(f"[{who}] kernel launches: {json.dumps(launched, sort_keys=True)}",
+              file=sys.stderr)
+    sb = sys.modules.get(__package__ + ".ops.seed_batch")
+    if sb is not None and any(sb.ROUTED_STEPS.values()):
+        walks = {n: {"calls": sb.ROUTED_CALLS[n], "steps": sb.ROUTED_STEPS[n],
+                     "rows": sb.ROUTED_ROWS[n],
+                     "call_ms": sb.ROUTED_MS[n]} for n in sb.ROUTED_STEPS}
+        print(f"[{who}] routed walks: {json.dumps(walks, sort_keys=True)}",
               file=sys.stderr)
 
 

@@ -23,7 +23,8 @@ over them, each held to its one-rank run in every rank:
      else 1): the seeds and the SA walk equal those of the replicated
      tables (sharded_index_seed_fn, sharded_index_sa_fn). On a card they
      run the step kernels of kernels/fm_route.cu, which each rank then
-     holds to the plain machines on its shard (_routed_checks).
+     holds to the plain machines on its shard (_routed_checks), with the
+     steps each walk took and its launches alone.
 Every entry point runs on the card unless the caller names another device;
 with no card it raises. Ranks on one card share it under gloo; nccl only
 where each rank has a card of its own (parallel/mesh.backend_for).
@@ -354,10 +355,11 @@ def _wall_ms(fn, dev, reps=1):
 def _routed_checks(mesh2, fm, pool, whichs, ranks, opt):
     """Stage 8's kernels (kernels/fm_route.cu) on this rank's shard and
     inputs, held to their plain versions on the same device: {kernel:
-    (max |d|, ms, plain ms, bytes, operations)}, the bytes those of the rows
-    the walk asked for (a row read once a step), its inputs and outputs.
-    Every rank of the idx group runs them in lockstep. Launches here are no
-    stage's."""
+    (max |d|, ms, plain ms, bytes, operations, steps)}, ms the walk's whole
+    call, the bytes those of the rows the walk asked for (a row read once a
+    step), its inputs and outputs (steps None for route_gather, whose ms is
+    its launch). Every rank of the idx group runs them in lockstep.
+    Launches here are no stage's."""
     import torch
 
     from .ops import seed_batch as sb
@@ -371,16 +373,16 @@ def _routed_checks(mesh2, fm, pool, whichs, ranks, opt):
     out = {}
 
     def held(name, kern, plain, io_bytes):
-        sb.ROUTED_ROWS[name] = 0
+        sb.reset_routed()
         ms, got = _wall_ms(kern, dev)
-        rows = sb.ROUTED_ROWS[name]
+        rows, steps = sb.ROUTED_ROWS[name], sb.ROUTED_STEPS[name]
         plain_ms, want = _wall_ms(plain, dev)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         _same(f"{name} against its plain machine", got, want)
         n_bytes = rows * row_bytes + io_bytes(got)
         # an occ4 from a row: about 16 popcounts and 48 shifts, masks, adds
-        out[name] = (0, ms, plain_ms, n_bytes, 64 * rows)
+        out[name] = (0, ms, plain_ms, n_bytes, 64 * rows, steps)
 
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     held("smem_route_step",
@@ -390,7 +392,8 @@ def _routed_checks(mesh2, fm, pool, whichs, ranks, opt):
     held("sa_route_step", lambda: sb.sa_batch(fml, whichs, ranks),
          lambda: sb.sa_batch_plain(fml, whichs, ranks),
          lambda got: nb(whichs, ranks, *got))
-    # the local half of a step's gather, at the seeder's shape
+    # route_gather, the SA samples' gather at the end of a walk, at the
+    # seeder's shape
     g = torch.from_numpy(np.random.default_rng(11).integers(
         -1, 2 * fml.n64_global, 2 * pool.shape[0])).to(dev)
     lo = fml.shard_index * fml.tab.shape[0]
@@ -398,7 +401,8 @@ def _routed_checks(mesh2, fm, pool, whichs, ranks, opt):
     plain_ms, want = _wall_ms(lambda: sb.route_gather_plain(fml.tab, lo, g),
                               dev, 20)
     _same("route_gather against its plain version", got, want)
-    out["route_gather"] = (0, ms, plain_ms, nb(g) + 2 * nb(got), 2 * g.numel())
+    out["route_gather"] = (0, ms, plain_ms, nb(g) + 2 * nb(got), 2 * g.numel(),
+                           None)
     return out
 
 

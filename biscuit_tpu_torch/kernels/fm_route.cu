@@ -11,34 +11,50 @@
 // A CUDA kernel cannot make a collective call in the middle of a walk, so
 // the walk is cut at its row reads:
 //
-//  * smem_route_step / sa_route_step advance every lane (a seeding lane, or
-//    an SA job) by one extension or one inverse-Psi step: each consumes the
-//    two table rows it asked for at the step before, runs on until it needs
-//    the next two, writes their global row ids and counts itself live;
-//  * route_gather copies the rows this shard owns for those ids and zeros
-//    the others (the source's masked gather);
-//  * between launches the wrapper (seed_batch._routed_seed, _routed_sa) sums
-//    the gathered rows over the idx group, the source's psum: exactly one
-//    shard owns each row, so every rank of the group gets every row, and the
-//    ranks, which hold the same lanes, stay in lockstep.
+//  * smem_route_step / sa_route_step advance every lane by one step on the
+//    rows it asked for at the step before, run on until the lane needs
+//    rows again, and in the same launch write the rows of that next ask
+//    which this shard owns into the lane's slots of the step buffer, zeros
+//    for the rows another shard owns (the source's masked gather), with the
+//    count of rows asked a lane;
+//  * between launches the wrapper (seed_batch._step_loop) sums the asked
+//    slots of the buffer over the idx group, the source's psum: exactly one
+//    shard owns each row, so every rank of the group gets every row, and
+//    the ranks, which hold the same lanes, stay in lockstep.
 //
-// What bounds it on an H100: not the card. A step moves two rows (32 or 48
-// bytes each) a lane and does a few hundred integer operations a lane; the
-// collective between steps, and the host round trip that reads the live
-// count, take the step's time. The design keeps each step to one launch of
-// each kernel and one collective of 2 x W words a lane, and the lanes' whole
-// state in device memory between launches, so that nothing but the rows and
-// one live count crosses to the host side.
+// What bounds it on an H100: not the card. A step moves a few table rows
+// (32 or 48 bytes each) a lane and does a few hundred integer operations a
+// row; the collective between steps takes the step's time. So the design
+// cuts the number of steps and what a step costs besides its collective:
 //
-// The lane's machine is smem.collect_intv written as a state machine (one
-// thread a lane, its state in a struct in device memory): pass 1 (smem1a
-// from every restart), pass 2 (smem1a in the middle of each long pass-1
-// SMEM of at most split_width occurrences, asking for one occurrence more),
-// pass 3 (seed_strategy1), then a stable sort of the lane's rows by (start,
-// end). Its arithmetic is the plain machine's (seed_batch._occ4, _extend,
-// _inv_psi_plain) in int64, whatever the rank dtype: occ4's edges (k < 0,
-// k == seq_len) and the cut-off bases read as A; extend's `crosses` term
-// and the b3..b0 order; smem1a's "shrank: keep the one before", the
+//  * the seeder gives a warp a lane (K3's layout, kernels/smem_seed.cu):
+//    a step is a base, not an extension. In smem1a's backward phase a base
+//    extends every interval of the list at once: thread j of the warp
+//    answers interval j (j + 32, ... beyond 32, in the same step), and the
+//    ask of the next base is the two rows of every live interval, 2 (L + 1)
+//    slots a lane at most. The forward phase, passes 2 and 3 take one
+//    extension a base, as the read dictates;
+//  * the machine itself (the control flow between asks) runs in thread 0
+//    with the lane's state in registers, loaded from and stored to device
+//    memory once a launch; the answers, and the gather of the next ask's
+//    rows, are spread over the warp's threads;
+//  * no separate gather launch: the step kernels write the owned rows
+//    themselves (route_gather stays for the SA samples at a walk's end);
+//  * no host read of a live count after every launch: a lane's count of
+//    rows asked lies beside the buffer, with its running total over the
+//    walk's steps (read once, at the walk's end); the gloo path, which
+//    crosses the host every step anyway, reads the counts there, and the
+//    nccl path reads them once every few steps (seed_batch.ROUTE_SYNC_EVERY),
+//    a finished lane's step being a no-op.
+//
+// The lane's machine is smem.collect_intv written as a state machine: pass
+// 1 (smem1a from every restart), pass 2 (smem1a in the middle of each long
+// pass-1 SMEM of at most split_width occurrences, asking for one occurrence
+// more), pass 3 (seed_strategy1), then a stable sort of the lane's rows by
+// (start, end). Its arithmetic is the plain machine's (seed_batch._occ4,
+// _extend, _inv_psi_plain) in int64, whatever the rank dtype: occ4's edges
+// (k < 0, k == seq_len) and the cut-off bases read as A; extend's `crosses`
+// term and the b3..b0 order; smem1a's "shrank: keep the one before", the
 // reversal, and the emit rule with `emitted`/`last`, in which seeds shorter
 // than min_seed_len take part unseen; ns != curr[nc-1].s; pass 3's ns > 0
 // store. A lane that would store row S+1 stops and is flagged, as in K3.
@@ -48,6 +64,8 @@
 namespace {
 
 constexpr uint32_t M55 = 0x55555555u;
+constexpr int THREADS = 128;             // a block: 4 warps, so 4 lanes of the seeder
+constexpr int LANES = THREADS / 32;
 
 struct Intv {
   int64_t x0, x1, s, end;
@@ -60,6 +78,12 @@ struct Consts {
   int64_t seq_len, n64;
 };
 
+// this rank's shard: rows [lo, lo + rows) of the [2 * n64, W] flattened table
+struct Shard {
+  const uint32_t* tab;
+  int64_t lo, rows;
+};
+
 // The fused row of rank k on strand `which` (seed_batch._occ4's kk >> 6),
 // as a global row id of the [2 * n64, W] flattened table.
 __device__ __forceinline__ int64_t occ_row_id(const Consts& cx, int which,
@@ -68,6 +92,14 @@ __device__ __forceinline__ int64_t occ_row_id(const Consts& cx, int which,
   if (ks > cx.seq_len - 1) ks = cx.seq_len - 1;
   const int64_t kk = ks - (ks >= cx.prim[which] ? 1 : 0);
   return (int64_t)which * cx.n64 + (kk >> 6);
+}
+
+// word w of global row id g where this shard owns it, else 0
+template <int W>
+__device__ __forceinline__ uint32_t owned_word(const Shard& sh, int64_t g,
+                                               int w) {
+  const int64_t r = g - sh.lo;
+  return (r >= 0 && r < sh.rows) ? sh.tab[r * W + w] : 0u;
 }
 
 // seed_batch._occ4 of rank k on strand `which`, from its fused row: the
@@ -105,6 +137,30 @@ __device__ void occ4(const Consts& cx, const uint32_t* row, int which,
 // the seeder
 // ---------------------------------------------------------------------------
 
+// an extension's answer: the new rank on the queried strand, on the other,
+// and the size
+struct Ext {
+  int64_t nq, no, ns;
+};
+
+// bwt_extend's class c of the interval (xq on strand `which`, xo on the
+// other, size s), seed_batch._extend, from the rows at ranks xq - 1 and
+// xq - 1 + s
+template <int W>
+__device__ Ext extend(const Consts& cx, const uint32_t* rows, int which,
+                      int64_t xq, int64_t xo, int64_t s, int c) {
+  int64_t tk[4], tl[4];
+  occ4<W>(cx, rows, which, xq - 1, tk);
+  occ4<W>(cx, rows + W, which, xq - 1 + s, tl);
+  const int64_t prim = cx.prim[which];
+  const int64_t b3 = xo + ((xq <= prim && xq + s - 1 >= prim) ? 1 : 0);
+  const int64_t b2 = b3 + (tl[3] - tk[3]);
+  const int64_t b1 = b2 + (tl[2] - tk[2]);
+  const int64_t b0 = b1 + (tl[1] - tk[1]);
+  return Ext{cx.L2[which * 5 + c] + 1 + tk[c],
+             c == 0 ? b0 : c == 1 ? b1 : c == 2 ? b2 : b3, tl[c] - tk[c]};
+}
+
 // the lane's state; all zero is the start of pass 1
 enum : int {
   P1 = 0,     // pass 1: the next restart
@@ -114,9 +170,8 @@ enum : int {
   FWD,        //   ... the next forward extension
   FWD_R,      //   ... its answer
   BACK,       //   ... the backward pass's start
-  ROUND,      //   ... a backward round at i
-  BWD,        //   ... the next interval of prev
-  BWD_R,      //   ... its answer
+  ROUND,      //   ... a backward round at base i: ask for every interval
+  ROUND_R,    //   ... the round's answers, every interval of prev
   RET,        //   ... returned ret to its caller
   STR,        // seed_strategy1: the next extension
   STR_R,      //   ... its answer
@@ -125,47 +180,30 @@ enum : int {
 };
 
 struct SeedLane {
-  int state, wait, caller;
+  int state, wait, m, caller;
   int x, k, n1, n, ov;
   // smem1a
-  int sx, i, c, nc, np, j, rev, emitted, last, ret, cur;
+  int sx, i, c, nc, np, rev, emitted, last, ret, cur;
   int64_t min_intv;
   Intv ik;
   // seed_strategy1
   int64_t x0, x1, s;
-  // the extension asked for: strand, ranks, class; and its answer
+  // a single extension asked (wait with m == 1 outside ROUND_R): strand,
+  // ranks, class; and its answer
   int ew, ec;
   int64_t exq, exo, es;
-  int64_t nq, no, ns;
+  Ext e;
 };
 
 struct SeedArgs {
   Consts cx;
+  Shard sh;
   const int32_t* reads;
   const int32_t* lens;
   const int32_t* parents;
   int64_t B;
   int L, msl, split_len, split_width, max_intv, start_width, S;
 };
-
-// bwt_extend's class ec of the asked interval (seed_batch._extend), from the
-// rows at ranks exq - 1 and exq - 1 + es
-template <int W>
-__device__ void answer(const Consts& cx, SeedLane& st, const uint32_t* rows) {
-  int64_t tk[4], tl[4];
-  occ4<W>(cx, rows, st.ew, st.exq - 1, tk);
-  occ4<W>(cx, rows + W, st.ew, st.exq - 1 + st.es, tl);
-  const int64_t prim = cx.prim[st.ew];
-  const int64_t b3 =
-      st.exo + ((st.exq <= prim && st.exq + st.es - 1 >= prim) ? 1 : 0);
-  const int64_t b2 = b3 + (tl[3] - tk[3]);
-  const int64_t b1 = b2 + (tl[2] - tk[2]);
-  const int64_t b0 = b1 + (tl[1] - tk[1]);
-  const int c = st.ec;
-  st.nq = cx.L2[st.ew * 5 + c] + 1 + tk[c];
-  st.no = c == 0 ? b0 : c == 1 ? b1 : c == 2 ? b2 : b3;
-  st.ns = tl[c] - tk[c];
-}
 
 __device__ __forceinline__ void ask(SeedLane& st, int which, int64_t xq,
                                     int64_t xo, int64_t s, int c, int next) {
@@ -175,6 +213,7 @@ __device__ __forceinline__ void ask(SeedLane& st, int which, int64_t xq,
   st.es = s;
   st.ec = c;
   st.state = next;
+  st.m = 1;
   st.wait = 1;
 }
 
@@ -191,21 +230,20 @@ __device__ bool store(SeedLane& st, R* rows, int S, int64_t start,
   return true;
 }
 
+// Thread 0's part of a step: the lane's machine from its answers (in
+// st.e, or in the first words of each slot pair of `slots` for a round) to
+// its next ask or its end.
 template <typename R, int W>
 __device__ void seed_lane(const SeedArgs& a, SeedLane& st, int64_t b,
-                          const uint32_t* rows_in, int64_t* req,
-                          Intv* lists, R* rows, int32_t* n_out,
-                          bool* ov_out) {
-  const Consts& cx = a.cx;
+                          const uint32_t* slots, Intv* lists, R* rows,
+                          int32_t* n_out, bool* ov_out) {
   const int32_t* q = a.reads + b * a.L;
   const int len = a.lens[b];
   const int bwd = a.parents[b], fwd = 1 - bwd;
-  const int64_t* L2 = cx.L2;
+  const int64_t* L2 = a.cx.L2;
   Intv* buf[2] = {lists, lists + (a.L + 1)};
-  if (st.wait) {
-    answer<W>(cx, st, rows_in);
-    st.wait = 0;
-  }
+  st.wait = 0;
+  st.m = 0;
   while (!st.wait && st.state != DONE) {
     switch (st.state) {
       case P1:
@@ -269,15 +307,15 @@ __device__ void seed_lane(const SeedArgs& a, SeedLane& st, int64_t b,
         }
         break;
       case FWD_R:
-        if (st.ns != st.ik.s) {  // the interval shrank: keep the one before
+        if (st.e.ns != st.ik.s) {  // the interval shrank: keep the one before
           buf[st.cur][st.nc++] = st.ik;
           st.ret = (int)st.ik.end;
-          if (st.ns < st.min_intv) {
+          if (st.e.ns < st.min_intv) {
             st.state = BACK;
             break;
           }
         }
-        st.ik = Intv{st.no, st.nq, st.ns, (int64_t)(st.i + 1)};
+        st.ik = Intv{st.e.no, st.e.nq, st.e.ns, (int64_t)(st.i + 1)};
         ++st.i;
         st.state = FWD;
         break;
@@ -290,51 +328,56 @@ __device__ void seed_lane(const SeedArgs& a, SeedLane& st, int64_t b,
         st.i = st.sx - 1;
         st.state = ROUND;
         break;
-      case ROUND:
+      case ROUND:  // base i extends every interval of prev: one ask for all
         if (st.i < -1) {
           st.state = RET;
           break;
         }
         st.c = (st.i < 0 || q[st.i] > 3) ? -1 : q[st.i];
         st.nc = 0;
-        st.j = 0;
-        st.state = BWD;
+        st.state = ROUND_R;
+        if (st.c >= 0) {
+          st.m = st.np;
+          st.wait = 1;
+        }
         break;
-      case BWD:
-      case BWD_R: {
-        if (st.state == BWD && st.j >= st.np) {  // the round's end
-          if (st.nc == 0) {
-            st.state = RET;
-          } else {
-            st.cur ^= 1;  // prev = curr
-            st.np = st.nc;
-            st.rev = 0;
-            --st.i;
-            st.state = ROUND;
+      case ROUND_R: {  // prev's intervals in order, each with its answer
+        const Intv* prev = buf[st.cur ^ 1];
+        Intv* curr = buf[st.cur];
+        bool over = false;
+        for (int j = 0; j < st.np && !over; ++j) {
+          const Intv p = prev[st.rev ? st.np - 1 - j : j];
+          Ext e{0, 0, 0};
+          bool keep = st.c < 0;
+          if (!keep) {
+            const int64_t* ans = (const int64_t*)(slots + (int64_t)2 * j * W);
+            e = Ext{ans[0], ans[1], ans[2]};
+            keep = e.ns < st.min_intv;
           }
-          break;
-        }
-        const Intv p = buf[st.cur ^ 1][st.rev ? st.np - 1 - st.j : st.j];
-        if (st.state == BWD && st.c >= 0) {
-          ask(st, bwd, p.x0, p.x1, p.s, st.c, BWD_R);
-          break;
-        }
-        if (st.c < 0 || st.ns < st.min_intv) {
-          // emitted only with curr empty, left of the last seed
-          if (st.nc == 0 && (!st.emitted || st.i + 1 < st.last)) {
-            st.emitted = 1;
-            st.last = st.i + 1;
-            if (p.end - (st.i + 1) >= a.msl &&
-                !store<R>(st, rows, a.S, st.i + 1, p.end, p.x0, p.x1, p.s)) {
-              st.state = FINISH;
-              break;
+          if (keep) {
+            // emitted only with curr empty, left of the last seed
+            if (st.nc == 0 && (!st.emitted || st.i + 1 < st.last)) {
+              st.emitted = 1;
+              st.last = st.i + 1;
+              if (p.end - (st.i + 1) >= a.msl &&
+                  !store<R>(st, rows, a.S, st.i + 1, p.end, p.x0, p.x1, p.s))
+                over = true;
             }
+          } else if (st.nc == 0 || e.ns != curr[st.nc - 1].s) {
+            curr[st.nc++] = Intv{e.nq, e.no, e.ns, p.end};
           }
-        } else if (st.nc == 0 || st.ns != buf[st.cur][st.nc - 1].s) {
-          buf[st.cur][st.nc++] = Intv{st.nq, st.no, st.ns, p.end};
         }
-        ++st.j;
-        st.state = BWD;
+        if (over) {
+          st.state = FINISH;
+        } else if (st.nc == 0) {  // the round's end
+          st.state = RET;
+        } else {
+          st.cur ^= 1;  // prev = curr
+          st.np = st.nc;
+          st.rev = 0;
+          --st.i;
+          st.state = ROUND;
+        }
         break;
       }
       case RET:  // smem1a returned ret
@@ -369,15 +412,16 @@ __device__ void seed_lane(const SeedArgs& a, SeedLane& st, int64_t b,
         }
         break;
       case STR_R:
-        if (st.ns < a.max_intv && st.i - st.sx >= a.msl) {
-          if (st.ns > 0)
-            store<R>(st, rows, a.S, st.sx, st.i + 1, st.no, st.nq, st.ns);
+        if (st.e.ns < a.max_intv && st.i - st.sx >= a.msl) {
+          if (st.e.ns > 0)
+            store<R>(st, rows, a.S, st.sx, st.i + 1, st.e.no, st.e.nq,
+                     st.e.ns);
           st.x = st.i + 1;
           st.state = P3;
         } else {
-          st.x0 = st.no;
-          st.x1 = st.nq;
-          st.s = st.ns;
+          st.x0 = st.e.no;
+          st.x1 = st.e.nq;
+          st.s = st.e.ns;
           ++st.i;
           st.state = STR;
         }
@@ -407,51 +451,95 @@ __device__ void seed_lane(const SeedArgs& a, SeedLane& st, int64_t b,
         st.state = DONE;
     }
   }
-  if (st.wait) {
-    req[2 * b] = occ_row_id(cx, st.ew, st.exq - 1);
-    req[2 * b + 1] = occ_row_id(cx, st.ew, st.exq - 1 + st.es);
-  } else {
-    req[2 * b] = req[2 * b + 1] = -1;
-  }
 }
 
+// One step of every lane, a warp a lane. `slots`: the lane's 2 (L + 1) rows
+// of W words in the step buffer, holding on entry the rows it asked for,
+// summed over the group, and on return the owned rows of its next ask;
+// cnt[b]: the rows asked (0: the lane is done), added to cnt[B + b], the
+// lane's rows asked over the walk.
 template <typename R, int W>
-__global__ void smem_route_step_kernel(SeedArgs a, SeedLane* states,
-                                       const uint32_t* __restrict__ rows_in,
-                                       int64_t* __restrict__ req,
-                                       Intv* lists, R* rows, int32_t* n_out,
-                                       bool* ov_out, int* live) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  SeedLane st = states[b];
-  if (st.state == DONE) {
-    req[2 * b] = req[2 * b + 1] = -1;
-    return;
+__global__ void __launch_bounds__(THREADS)
+smem_route_step_kernel(SeedArgs a, SeedLane* states, uint32_t* buf,
+                       int32_t* cnt, Intv* lists, R* rows, int32_t* n_out,
+                       bool* ov_out) {
+  const int t = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * LANES + (threadIdx.x >> 5);
+  if (b >= a.B) return;  // the whole warp
+  SeedLane* sp = states + b;
+  uint32_t* slots = buf + b * 2 * (int64_t)(a.L + 1) * W;
+  Intv* lb = lists + b * 2 * (int64_t)(a.L + 1);
+  const int bwd = a.parents[b];
+  // 1. a round's answers, a thread an interval, each into the first words
+  // of its own slot pair (its rows are read first)
+  if (sp->wait && sp->state == ROUND_R) {
+    const int np = sp->np, rev = sp->rev, c = sp->c;
+    const Intv* prev = lb + (sp->cur ^ 1) * (a.L + 1);
+    for (int j = t; j < np; j += 32) {
+      const Intv p = prev[rev ? np - 1 - j : j];
+      uint32_t* pair = slots + (int64_t)2 * j * W;
+      const Ext e = extend<W>(a.cx, pair, bwd, p.x0, p.x1, p.s, c);
+      int64_t* ans = (int64_t*)pair;
+      ans[0] = e.nq, ans[1] = e.no, ans[2] = e.ns;
+    }
   }
-  seed_lane<R, W>(a, st, b, rows_in + b * 2 * W, req,
-                  lists + b * 2 * (a.L + 1), rows + b * a.S * 5, n_out,
-                  ov_out);
-  states[b] = st;
-  if (st.wait) atomicAdd(live, 1);
+  __syncwarp();
+  // 2. the machine, thread 0, its state in registers for the step
+  if (t == 0) {
+    SeedLane st = *sp;
+    if (st.state == DONE) {
+      st.wait = 0;
+    } else {
+      if (st.wait && st.state != ROUND_R)
+        st.e = extend<W>(a.cx, slots, st.ew, st.exq, st.exo, st.es, st.ec);
+      seed_lane<R, W>(a, st, b, slots, lb, rows + b * a.S * 5, n_out, ov_out);
+      *sp = st;
+    }
+    const int32_t c = st.wait ? 2 * st.m : 0;
+    cnt[b] = c;
+    cnt[a.B + b] += c;
+  }
+  __syncwarp();
+  // 3. the next ask's rows this shard owns, a thread a word: extension e
+  // takes slots 2e (rank xq - 1) and 2e + 1 (rank xq - 1 + s)
+  if (!sp->wait) return;
+  const int m = sp->m;
+  const bool round = sp->state == ROUND_R;
+  const int np = sp->np, rev = sp->rev, ew = sp->ew;
+  const int64_t exq = sp->exq, es = sp->es;
+  const Intv* prev = lb + (sp->cur ^ 1) * (a.L + 1);
+  for (int u = t; u < m * 2 * W; u += 32) {
+    const int e = u / (2 * W), h = (u / W) & 1, w = u % W;
+    int which = ew;
+    int64_t xq = exq, s = es;
+    if (round) {
+      const Intv p = prev[rev ? np - 1 - e : e];
+      which = bwd, xq = p.x0, s = p.s;
+    }
+    slots[u] = owned_word<W>(a.sh, occ_row_id(a.cx, which, xq - 1 + (h ? s : 0)),
+                             w);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // the SA walk
 // ---------------------------------------------------------------------------
 
-// mode 0: start at k; 1: one inverse-Psi step from the rows asked for; each
-// asks for the rows of its next step while its rank is not a multiple of
-// sa_intv, else for its SA sample. mode 2: the position, steps + sample.
+// A thread a job. mode 0: start at k; 1: one inverse-Psi step from the two
+// rows in the job's slots (the BWT character's row, the occ row), where the
+// rank is not a multiple of sa_intv. Both then write the owned rows of the
+// next step into the slots (cnt 2, added to the job's total cnt[n + i]), or
+// ask for the SA sample (cnt 0).
+// mode 2: the position, steps + sample.
 template <typename R, int W>
-__global__ void sa_route_step_kernel(Consts cx, const int32_t* which,
+__global__ void sa_route_step_kernel(Consts cx, Shard sh, const int32_t* which,
                                      const R* k, int64_t n, int shift,
                                      int64_t n_sa, int mode, int64_t* kk,
-                                     int64_t* add,
-                                     const uint32_t* __restrict__ rows_in,
-                                     int64_t* __restrict__ req,
+                                     int64_t* add, uint32_t* buf,
+                                     int32_t* cnt,
                                      int64_t* __restrict__ sample_req,
                                      const uint32_t* __restrict__ samples,
-                                     R* out, int* live) {
+                                     R* out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int w = which[i];
@@ -465,31 +553,35 @@ __global__ void sa_route_step_kernel(Consts cx, const int32_t* which,
     out[i] = (R)(add[i] + smp);
     return;
   }
+  uint32_t* pair = buf + i * 2 * W;
+  const int64_t prim = cx.prim[w];
   int64_t r = mode == 0 ? (int64_t)k[i] : kk[i];
   if (mode == 0) {
     add[i] = 0;
   } else if (r & mask) {  // _inv_psi_plain: the BWT character at r, then
     // L2[c] + occ(c, r)
-    const uint32_t* row = rows_in + i * 2 * W;
-    const int64_t prim = cx.prim[w];
     const int64_t j = r - (r >= prim ? 1 : 0);
-    const uint32_t word = row[W - 4 + ((j >> 4) & 3)];
+    const uint32_t word = pair[W - 4 + ((j >> 4) & 3)];
     const int c = (int)((word >> (((~j) & 15) << 1)) & 3);
     int64_t occ[4];
-    occ4<W>(cx, row + W, w, r, occ);
+    occ4<W>(cx, pair + W, w, r, occ);
     const int64_t nxt = cx.L2[w * 5 + c] + occ[c];
     r = r == prim ? 0 : nxt;
     ++add[i];
   }
   kk[i] = r;
   if (r & mask) {
-    const int64_t prim = cx.prim[w];
-    req[2 * i] = (int64_t)w * cx.n64 + ((r - (r >= prim ? 1 : 0)) >> 6);
-    req[2 * i + 1] = occ_row_id(cx, w, r);
+    const int64_t g0 = (int64_t)w * cx.n64 + ((r - (r >= prim ? 1 : 0)) >> 6);
+    const int64_t g1 = occ_row_id(cx, w, r);
+    for (int u = 0; u < W; ++u) {
+      pair[u] = owned_word<W>(sh, g0, u);
+      pair[W + u] = owned_word<W>(sh, g1, u);
+    }
+    cnt[i] = 2;
+    cnt[n + i] += 2;
     sample_req[i] = -1;
-    atomicAdd(live, 1);
   } else {
-    req[2 * i] = req[2 * i + 1] = -1;
+    cnt[i] = 0;
     sample_req[i] = (int64_t)w * n_sa + (r >> shift);
   }
 }
@@ -511,74 +603,80 @@ __global__ void route_gather_kernel(const uint32_t* __restrict__ local,
   out[t] = (g >= 0 && g < rows) ? local[g * words + w] : 0u;
 }
 
-constexpr int THREADS = 128;
-
-unsigned blocks_of(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+unsigned blocks_of(int64_t n, int per) {
+  return (unsigned)((n + per - 1) / per);
+}
 
 template <typename R, int W>
-int seed_step(const SeedArgs& a, void* states, const void* rows_in, void* req,
-              void* lists, void* rows, void* n_out, void* ov_out, void* live,
+int seed_step(const SeedArgs& a, void* states, void* buf, void* cnt,
+              void* lists, void* rows, void* n_out, void* ov_out,
               cudaStream_t stream) {
-  smem_route_step_kernel<R, W><<<blocks_of(a.B), THREADS, 0, stream>>>(
-      a, (SeedLane*)states, (const uint32_t*)rows_in, (int64_t*)req,
-      (Intv*)lists, (R*)rows, (int32_t*)n_out, (bool*)ov_out, (int*)live);
+  smem_route_step_kernel<R, W><<<blocks_of(a.B, LANES), THREADS, 0, stream>>>(
+      a, (SeedLane*)states, (uint32_t*)buf, (int32_t*)cnt, (Intv*)lists,
+      (R*)rows, (int32_t*)n_out, (bool*)ov_out);
   return (int)cudaGetLastError();
 }
 
 template <typename R, int W>
-int sa_step(const Consts& cx, const void* which, const void* k, int64_t n,
-            int shift, int64_t n_sa, int mode, void* kk, void* add,
-            const void* rows_in, void* req, void* sample_req,
-            const void* samples, void* out, void* live, cudaStream_t stream) {
-  sa_route_step_kernel<R, W><<<blocks_of(n), THREADS, 0, stream>>>(
-      cx, (const int32_t*)which, (const R*)k, n, shift, n_sa, mode,
-      (int64_t*)kk, (int64_t*)add, (const uint32_t*)rows_in, (int64_t*)req,
-      (int64_t*)sample_req, (const uint32_t*)samples, (R*)out, (int*)live);
+int sa_step(const Consts& cx, const Shard& sh, const void* which,
+            const void* k, int64_t n, int shift, int64_t n_sa, int mode,
+            void* kk, void* add, void* buf, void* cnt, void* sample_req,
+            const void* samples, void* out, cudaStream_t stream) {
+  sa_route_step_kernel<R, W><<<blocks_of(n, THREADS), THREADS, 0, stream>>>(
+      cx, sh, (const int32_t*)which, (const R*)k, n, shift, n_sa, mode,
+      (int64_t*)kk, (int64_t*)add, (uint32_t*)buf, (int32_t*)cnt,
+      (int64_t*)sample_req, (const uint32_t*)samples, (R*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bytes of a lane's state, and of its two interval lists at read length L
+// bytes of a lane's state, and of its two interval lists at read length L;
+// rows a lane may ask for in one step at read length L
 extern "C" int64_t smem_route_state_bytes() { return sizeof(SeedLane); }
 extern "C" int64_t smem_route_list_bytes(int L) {
   return 2 * ((int64_t)L + 1) * (int64_t)sizeof(Intv);
 }
+extern "C" int64_t smem_route_slots(int L) { return 2 * ((int64_t)L + 1); }
 
 // one step of every lane of the seeder; states zero before the first
 extern "C" int smem_route_step(int wide, const void* L2, const void* primary,
-                               int64_t seq_len, int64_t n64, const void* reads,
-                               const void* lens, const void* parents,
-                               int64_t B, int L, int msl, int split_len,
-                               int split_width, int max_intv, int start_width,
-                               int S, void* states, const void* rows_in,
-                               void* req, void* lists, void* rows, void* n_out,
-                               void* ov_out, void* live, void* stream) {
+                               int64_t seq_len, int64_t n64, const void* tab,
+                               int64_t tab_rows, int64_t tab_lo,
+                               const void* reads, const void* lens,
+                               const void* parents, int64_t B, int L, int msl,
+                               int split_len, int split_width, int max_intv,
+                               int start_width, int S, void* states,
+                               void* buf, void* cnt, void* lists, void* rows,
+                               void* n_out, void* ov_out, void* stream) {
   SeedArgs a{Consts{(const int64_t*)L2, (const int64_t*)primary, seq_len, n64},
+             Shard{(const uint32_t*)tab, tab_lo, tab_rows},
              (const int32_t*)reads, (const int32_t*)lens,
              (const int32_t*)parents, B, L, msl, split_len, split_width,
              max_intv, start_width, S};
   if (wide)
-    return seed_step<int64_t, 12>(a, states, rows_in, req, lists, rows, n_out,
-                                  ov_out, live, (cudaStream_t)stream);
-  return seed_step<int32_t, 8>(a, states, rows_in, req, lists, rows, n_out,
-                               ov_out, live, (cudaStream_t)stream);
+    return seed_step<int64_t, 12>(a, states, buf, cnt, lists, rows, n_out,
+                                  ov_out, (cudaStream_t)stream);
+  return seed_step<int32_t, 8>(a, states, buf, cnt, lists, rows, n_out,
+                               ov_out, (cudaStream_t)stream);
 }
 
 extern "C" int sa_route_step(int wide, const void* L2, const void* primary,
-                             int64_t seq_len, int64_t n64, const void* which,
-                             const void* k, int64_t n, int shift, int64_t n_sa,
-                             int mode, void* kk, void* add,
-                             const void* rows_in, void* req, void* sample_req,
-                             const void* samples, void* out, void* live,
+                             int64_t seq_len, int64_t n64, const void* tab,
+                             int64_t tab_rows, int64_t tab_lo,
+                             const void* which, const void* k, int64_t n,
+                             int shift, int64_t n_sa, int mode, void* kk,
+                             void* add, void* buf, void* cnt,
+                             void* sample_req, const void* samples, void* out,
                              void* stream) {
   Consts cx{(const int64_t*)L2, (const int64_t*)primary, seq_len, n64};
+  Shard sh{(const uint32_t*)tab, tab_lo, tab_rows};
   if (wide)
-    return sa_step<int64_t, 12>(cx, which, k, n, shift, n_sa, mode, kk, add,
-                                rows_in, req, sample_req, samples, out, live,
+    return sa_step<int64_t, 12>(cx, sh, which, k, n, shift, n_sa, mode, kk,
+                                add, buf, cnt, sample_req, samples, out,
                                 (cudaStream_t)stream);
-  return sa_step<int32_t, 8>(cx, which, k, n, shift, n_sa, mode, kk, add,
-                             rows_in, req, sample_req, samples, out, live,
+  return sa_step<int32_t, 8>(cx, sh, which, k, n, shift, n_sa, mode, kk, add,
+                             buf, cnt, sample_req, samples, out,
                              (cudaStream_t)stream);
 }
 
@@ -586,7 +684,7 @@ extern "C" int route_gather(const void* local, int64_t rows, int64_t lo,
                             int words, const void* req, int64_t n, void* out,
                             void* stream) {
   if (n > 0)
-    route_gather_kernel<<<blocks_of(n * words), THREADS, 0,
+    route_gather_kernel<<<blocks_of(n * words, THREADS), THREADS, 0,
                           (cudaStream_t)stream>>>(
         (const uint32_t*)local, rows, lo, words, (const int64_t*)req, n,
         (uint32_t*)out);

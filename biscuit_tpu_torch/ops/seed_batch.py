@@ -16,8 +16,9 @@ sum over the group, as the source's routed gather (seed_batch.py:265-289).
 A kernel cannot make that collective call in the middle of a walk, so on a
 CUDA device `collect_intv_flat` and `sa_batch` walk a shard by steps
 (kernels/fm_route.cu, K10's path, parallel/mesh.py): a launch advances every
-lane to its next two row reads, `route_gather` gathers the rows this shard
-owns, and their sum over the group feeds the next launch. K3's and K4's
+lane to its next row reads (a base of the seeder: every interval of a
+backward round at once) and writes the rows this shard owns of them, and
+their sum over the group feeds the next launch. K3's and K4's
 kernels refuse a shard.
 
 `collect_intv_flat`, `sa_batch` and `sa_batch_intervals` launch the CUDA
@@ -732,15 +733,23 @@ def seed_resident_warps(L: int, wide: bool, S: int = SEED_CAP):
             int(lib.smem_seed_lane_bytes(L, S, int(wide))))
 
 
-def seed_lane_bytes(L: int, wide: bool, device, S: int = SEED_CAP) -> int:
+def seed_lane_bytes(L: int, wide: bool, device, S: int = SEED_CAP,
+                    routed: bool = False) -> int:
     """Device memory one lane of `collect_intv_flat` takes at read length
     L: its converted read, length and strand, its S rows of the rank dtype
     with their count and flag, twice over (the compacted copy), and on CUDA
     the scratch K3 gives a lane whose interval lists exceed an SM's shared
-    memory."""
+    memory, or with routed=True (a shard of the tables) the routed
+    seeder's state, interval lists and slots of the step buffer with their
+    count."""
     n = 4 * L + 8 + 2 * (S * 5 * (8 if wide else 4) + 5)
     if torch.device(device).type == "cuda":
-        n += int(_seed_lib().smem_seed_scratch_bytes(L, S, int(wide)))
+        if routed:
+            lib = _route_lib()
+            n += int(lib.smem_route_state_bytes() + lib.smem_route_list_bytes(L)
+                     + lib.smem_route_slots(L) * (48 if wide else 32) + 4)
+        else:
+            n += int(_seed_lib().smem_seed_scratch_bytes(L, S, int(wide)))
     return n
 
 
@@ -808,11 +817,18 @@ def collect_intv_flat(fm: FMPair, reads, lens, parents, opt,
 
 
 def collect_intv_batch(fm: FMPair, reads, lens, parents, opt,
-                       S: int = SEED_CAP, on_device: bool = False):
+                       S: int = SEED_CAP, on_device: bool = False,
+                       seeder=None):
     """collect_intv_flat as per-lane lists of (start, end, x0, x1, size)
     tuples, with the overflow mask as numpy. on_device: also (lane_of,
-    rows) as the seeder left them on the device, for K4's interval entry."""
-    lane_of, rows, ov = collect_intv_flat(fm, reads, lens, parents, opt, S)
+    rows) as the seeder left them on the device, for K4's interval entry.
+    seeder: fn(reads, lens, parents, opt) with collect_intv_flat's contract
+    in its place (the index sharded over ranks:
+    parallel.mesh.index_sharded_seeder), fm then unused."""
+    if seeder is None:
+        lane_of, rows, ov = collect_intv_flat(fm, reads, lens, parents, opt, S)
+    else:
+        lane_of, rows, ov = seeder(reads, lens, parents, opt)
     B = reads.shape[0]
     counts = np.bincount(lane_of.cpu().numpy(), minlength=B)
     flat = [tuple(r) for r in rows.cpu().tolist()]
@@ -882,7 +898,7 @@ def sa_batch(fm: FMPair, which: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Batched SA lookup: which [n] int32 strand ids, k [n] ranks (the rank
     dtype) -> text positions [n] of the rank dtype. K4's rank entry on CUDA
     (no host sync), the plain walk on the CPU; on a shard of the tables on
-    CUDA the routed steps (_routed_sa, a host sync a step)."""
+    CUDA the routed steps (_routed_sa)."""
     if kernels.route(k) == "plain":
         return sa_batch_plain(fm, which, k)
     which = which.to(torch.int32).contiguous()
@@ -928,27 +944,49 @@ def sa_batch_intervals(fm: FMPair, which_row: torch.Tensor,
 # K10: the routed walks over a shard of the tables (kernels/fm_route.cu)
 # ---------------------------------------------------------------------------
 
-# (wide, L2, primary, seq_len, n64, reads, lens, parents, B, L, msl,
-#  split_len, split_width, max_intv, start_width, S, states, rows_in, req,
-#  lists, rows, n, ov, live)
+# (wide, L2, primary, seq_len, n64, tab, tab_rows, tab_lo, reads, lens,
+#  parents, B, L, msl, split_len, split_width, max_intv, start_width, S,
+#  states, buf, cnt, lists, rows, n, ov)
 _ROUTE_SEED_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
                    + [ctypes.c_int64] + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 8)
-# (wide, L2, primary, seq_len, n64, which, k, n, shift, n_sa, mode, kk, add,
-#  rows_in, req, sample_req, samples, out, live)
+                   + [ctypes.c_void_p] * 7)
+# (wide, L2, primary, seq_len, n64, tab, tab_rows, tab_lo, which, k, n,
+#  shift, n_sa, mode, kk, add, buf, cnt, sample_req, samples, out)
 _ROUTE_SA_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
                  + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
                  + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-                 + [ctypes.c_void_p] * 8)
+                 + [ctypes.c_void_p] * 7)
 # (local, rows, lo, words, req, n, out)
 _GATHER_SIG = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
 
+_WALKS = ("smem_route_step", "sa_route_step")
+# step kernel -> what its walks did since reset_routed(): ROUTED_ROWS the
+# fused rows the steps asked for (the rows a step's collective delivers,
+# summed over steps, from the lanes' running totals that the step kernels
+# keep), ROUTED_STEPS the steps (a launch and a collective each),
+# ROUTED_CALLS the walks, ROUTED_MS the walks' whole calls in milliseconds
+# on the host's clock (a step kernel's launches alone are timed by
+# tools/route_bench.py)
+ROUTED_ROWS = {k: 0 for k in _WALKS}
+ROUTED_STEPS = {k: 0 for k in _WALKS}
+ROUTED_CALLS = {k: 0 for k in _WALKS}
+ROUTED_MS = {k: 0.0 for k in _WALKS}
+# steps enqueued between host reads of the lanes' counts of rows asked,
+# under nccl (under gloo every step crosses the host anyway): the fastest k
+# of tools/route_bench.py's sweep of 1, 4, 8, 16, 32 on 8192 lanes over
+# nccl on 4 cards (PERF.md)
+ROUTE_SYNC_EVERY = 16
 
-# kernel -> fused rows the routed walks asked for since the caller set it
-# to 0 (the rows a step's collective delivers, summed over steps)
-ROUTED_ROWS = {"smem_route_step": 0, "sa_route_step": 0}
+
+def reset_routed() -> None:
+    """Set ROUTED_ROWS, ROUTED_STEPS, ROUTED_CALLS and ROUTED_MS to 0."""
+    for k in _WALKS:
+        ROUTED_ROWS[k] = ROUTED_STEPS[k] = ROUTED_CALLS[k] = 0
+        ROUTED_MS[k] = 0.0
 
 
 def _route_lib():
@@ -956,8 +994,10 @@ def _route_lib():
                                     "sa_route_step": _ROUTE_SA_SIG,
                                     "route_gather": _GATHER_SIG})
     lib.smem_route_state_bytes.argtypes = []
-    lib.smem_route_list_bytes.argtypes = [ctypes.c_int]
-    for fn in (lib.smem_route_state_bytes, lib.smem_route_list_bytes):
+    for fn in (lib.smem_route_list_bytes, lib.smem_route_slots):
+        fn.argtypes = [ctypes.c_int]
+    for fn in (lib.smem_route_state_bytes, lib.smem_route_list_bytes,
+               lib.smem_route_slots):
         fn.restype = ctypes.c_int64
     return lib
 
@@ -980,21 +1020,55 @@ def route_gather(table: torch.Tensor, lo: int, g: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _route_rows(fm: FMPair, req: torch.Tensor) -> torch.Tensor:
-    """The fused rows at global ids req [n, 2], from the shard that owns
-    each, summed over the group: [n, 2, W] int32."""
+def _step_loop(fm: FMPair, name: str, launch, buf: torch.Tensor,
+               cnt: torch.Tensor) -> None:
+    """The steps of a routed walk: launch() advances every lane and leaves
+    in buf [B, slots, W] int32 the owned rows of each lane's next ask, its
+    first cnt[0, b] slots, zeros where another shard owns a row, and adds
+    that count to the lane's running total cnt[1, b]; between launches
+    those slots are summed over the group, until no lane asks. Under nccl
+    the whole buffer is summed on the card and the counts read once every
+    ROUTE_SYNC_EVERY steps, a finished lane's step being a no-op; under
+    gloo every step crosses the host, the asked slots alone, found from the
+    counts. The ranks of the group run it in lockstep on the same lanes."""
+    import time
+
+    import torch.distributed as dist
+
     from ..parallel.mesh import group_sum
-    R = fm.tab.shape[0]
-    got = route_gather(fm.tab, fm.shard_index * R, req.reshape(-1))
-    return group_sum(got, fm.group).reshape(req.shape + (fm.tab.shape[-1],))
+    t0 = time.perf_counter()
+    nccl = dist.get_backend(fm.group) == "nccl"
+    flat = buf.view(-1, buf.shape[-1])
+    slot = torch.arange(buf.shape[1], dtype=torch.int32, device=buf.device)
+    cnt.zero_()
+    steps = 0
+    while True:
+        launch()
+        steps += 1
+        if nccl:
+            if steps % ROUTE_SYNC_EVERY == 0 and not bool(cnt[0].any()):
+                break
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=fm.group)
+        else:
+            sel = torch.nonzero((slot[None, :] < cnt[0, :, None]).reshape(-1))
+            sel = sel.reshape(-1)
+            if sel.numel() == 0:
+                break
+            flat.index_copy_(0, sel, group_sum(flat.index_select(0, sel),
+                                               fm.group))
+    ROUTED_ROWS[name] += int(cnt[1].sum())
+    ROUTED_STEPS[name] += steps
+    ROUTED_CALLS[name] += 1
+    ROUTED_MS[name] += (time.perf_counter() - t0) * 1e3
 
 
 def _routed_seed(fm: FMPair, reads, lens, parents, params, S: int):
     """K3's contract (_launch_seed's outputs) on a shard of the tables, by
-    steps: smem_route_step advances every lane to its next extension, whose
-    two rows route_gather and the group's sum deliver to the next launch,
-    until no lane asks for rows. The ranks of the group run it in lockstep
-    on the same lanes. A host sync a step (the count of live lanes)."""
+    steps (_step_loop): a warp a lane, a step a base. smem_route_step takes
+    each lane from the rows it asked for to its next ask, one extension in
+    the forward phase and passes 2 and 3, every interval of the list in a
+    backward round, and writes the owned rows of that ask. The ranks of the
+    group run it in lockstep on the same lanes."""
     dev = kernels.check_cuda(fm.tab, reads, lens, parents)
     B, L = reads.shape
     lib = _route_lib()
@@ -1008,29 +1082,28 @@ def _routed_seed(fm: FMPair, reads, lens, parents, params, S: int):
                          dtype=torch.uint8, device=dev)
     lists = torch.empty((B, int(lib.smem_route_list_bytes(L))),
                         dtype=torch.uint8, device=dev)
-    rows_in = torch.zeros((B, 2, W), dtype=torch.int32, device=dev)
-    req = torch.empty((B, 2), dtype=torch.int64, device=dev)
-    live = torch.zeros(1, dtype=torch.int32, device=dev)
+    buf = torch.empty((B, int(lib.smem_route_slots(L)), W), dtype=torch.int32,
+                      device=dev)
+    cnt = torch.empty((2, B), dtype=torch.int32, device=dev)
     P = kernels.ptr
-    while True:
-        live.zero_()
+
+    def launch():
         kernels.launch(lib, "smem_route_step", "smem_route_step", dev,
                        int(fm.wide), P(fm.L2), P(fm.primary), fm.seq_len,
-                       fm.n64_global, P(reads), P(lens), P(parents), B, L,
-                       *params, S, P(states), P(rows_in), P(req), P(lists),
-                       P(rows), P(n), P(ov), P(live))
-        n_live = int(live.item())
-        if n_live == 0:
-            return rows, n, ov
-        ROUTED_ROWS["smem_route_step"] += 2 * n_live
-        rows_in = _route_rows(fm, req)
+                       fm.n64_global, P(fm.tab), fm.tab.shape[0],
+                       fm.shard_index * fm.tab.shape[0], P(reads), P(lens),
+                       P(parents), B, L, *params, S, P(states), P(buf),
+                       P(cnt), P(lists), P(rows), P(n), P(ov))
+    _step_loop(fm, "smem_route_step", launch, buf, cnt)
+    return rows, n, ov
 
 
 def _routed_sa(fm: FMPair, which, k) -> torch.Tensor:
-    """sa_batch on a shard of the tables, by steps: sa_route_step walks
-    every job one inverse-Psi step on the two rows it asked for (gathered
-    and summed over the group as in _routed_seed), then each finished job's
-    SA sample comes the same way and a last launch adds the steps."""
+    """sa_batch on a shard of the tables, by steps (_step_loop):
+    sa_route_step walks every job one inverse-Psi step on the two rows it
+    asked for and writes the owned rows of its next step; then each
+    finished job's SA sample comes through route_gather and the group's
+    sum, and a last launch adds the steps."""
     from ..parallel.mesh import group_sum
     dev = kernels.check_cuda(fm.tab, fm.sa_samples, which, k)
     n = k.numel()
@@ -1041,32 +1114,25 @@ def _routed_sa(fm: FMPair, which, k) -> torch.Tensor:
     W = fm.tab.shape[-1]
     kk = torch.empty(n, dtype=torch.int64, device=dev)
     add = torch.empty(n, dtype=torch.int64, device=dev)
-    rows_in = torch.zeros((n, 2, W), dtype=torch.int32, device=dev)
-    req = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    buf = torch.empty((n, 2, W), dtype=torch.int32, device=dev)
+    cnt = torch.empty((2, n), dtype=torch.int32, device=dev)
     sample_req = torch.empty(n, dtype=torch.int64, device=dev)
-    live = torch.zeros(1, dtype=torch.int32, device=dev)
     P = kernels.ptr
+    mode = [0]
 
-    def step(mode, samples=None):
+    def step(samples=None):
         kernels.launch(lib, "sa_route_step", "sa_route_step", dev,
                        int(fm.wide), P(fm.L2), P(fm.primary), fm.seq_len,
-                       fm.n64_global, P(which), P(k), n,
-                       fm.sa_intv.bit_length() - 1, fm.n_sa_global, mode,
-                       P(kk), P(add), P(rows_in), P(req), P(sample_req),
-                       P(samples) if samples is not None else None, P(out),
-                       P(live))
-    mode = 0
-    while True:
-        live.zero_()
-        step(mode)
-        mode = 1
-        n_live = int(live.item())
-        if n_live == 0:
-            break
-        ROUTED_ROWS["sa_route_step"] += 2 * n_live
-        rows_in = _route_rows(fm, req)
+                       fm.n64_global, P(fm.tab), fm.tab.shape[0],
+                       fm.shard_index * fm.tab.shape[0], P(which), P(k), n,
+                       fm.sa_intv.bit_length() - 1, fm.n_sa_global, mode[0],
+                       P(kk), P(add), P(buf), P(cnt), P(sample_req),
+                       P(samples) if samples is not None else None, P(out))
+        mode[0] = 1
+    _step_loop(fm, "sa_route_step", step, buf, cnt)
     S_l = fm.sa_samples.shape[0]
     samples = group_sum(route_gather(fm.sa_samples, fm.shard_index * S_l,
                                      sample_req), fm.group)
-    step(2, samples.contiguous())
+    mode[0] = 2
+    step(samples.contiguous())
     return out

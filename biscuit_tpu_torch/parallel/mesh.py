@@ -30,6 +30,11 @@ each step is one launch (kernels/fm_route.cu) and one sum of the rows it
 asked for over the group; on the CPU the plain machines do the same sum at
 each row read (seed_batch._tab_row).
 
+`align` runs on an index sharded over ranks under
+BISCUIT_TPU_TORCH_INDEX_SHARD=n (index_shard_mesh, index_sharded_seeder):
+WORLD_SIZE ranks started with torchrun's variables, a make_mesh2 grid of
+WORLD_SIZE // n by n.
+
 Backends (`backend_for`): nccl where every rank has a card of its own
 (torch.cuda.device_count() >= world size), else gloo: on the CPU, and for
 ranks that share one card, whose tensors then cross the collectives through
@@ -87,6 +92,33 @@ def init_from_env(device):
     backend, device = init_group(rank, world, "env://", device,
                                  int(os.environ.get("LOCAL_RANK", rank)))
     return world, rank, backend, device
+
+
+# align's switch: the FM index sharded over n ranks of the group that
+# torchrun's variables describe (the source's BISCUIT_TPU_INDEX_SHARD)
+INDEX_SHARD_ENV = "BISCUIT_TPU_TORCH_INDEX_SHARD"
+
+
+def index_shard_mesh(device):
+    """The grid of BISCUIT_TPU_TORCH_INDEX_SHARD=n: None when the variable
+    is unset or at most 1; else, when WORLD_SIZE is a multiple of n above
+    1, this rank joins the group (init_from_env) and gets its place in the
+    make_mesh2(WORLD_SIZE // n, n) grid, the source's n_dp = ndev // n_idx.
+    Any other WORLD_SIZE raises ValueError before any group is joined, as
+    the source asserts that n_idx needs that many devices."""
+    raw = os.environ.get(INDEX_SHARD_ENV, "")
+    try:
+        n = int(raw or 0)
+    except ValueError:
+        raise ValueError(f"{INDEX_SHARD_ENV}={raw} is not a number of shards")
+    if n <= 1:
+        return None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or world % n:
+        raise ValueError(f"{INDEX_SHARD_ENV}={n} needs a WORLD_SIZE that is "
+                         f"a multiple of {n} (have WORLD_SIZE={world})")
+    world, _rank, _backend, device = init_from_env(device)
+    return make_mesh2(world // n, n, device)
 
 
 @dataclass(frozen=True, eq=False)
@@ -328,6 +360,26 @@ def _local_fm(mesh: Mesh, fm: FMPair) -> FMPair:
         return fm
     return fm_shard(fm, mesh.size("idx"), mesh.coord("idx"),
                     mesh.group("idx"))
+
+
+def index_sharded_seeder(mesh: Mesh, fm: FMPair):
+    """collect_intv_flat's contract over a whole batch of lanes with the FM
+    index sharded over `idx` and the lanes over `dp` (the split of
+    sharded_index_seed_fn, the source's _collect_flat_index_sharded):
+    fn(reads [B, L], lens [B], parents [B], opt) -> (lane_of, rows,
+    overflow) of all B lanes. Every rank passes the same batch; it seeds its
+    dp slice on its shard of the tables, in lockstep with the ranks of its
+    idx group, which hold the same slice, and the slices' rows are gathered
+    over dp in rank order, the lane ids offset by the lanes before."""
+    fml = _local_fm(mesh, fm)
+
+    def fn(reads, lens, parents, opt):
+        lo, hi = shard_bounds(reads.shape[0], mesh)
+        lane_of, rows, ov = collect_intv_flat(fml, reads[lo:hi], lens[lo:hi],
+                                              parents[lo:hi], opt)
+        return (all_gather(lane_of + lo, mesh), all_gather(rows, mesh),
+                all_gather(ov, mesh))
+    return fn
 
 
 def sharded_index_seed_fn(mesh: Mesh, fm: FMPair, opt: MemOpt):

@@ -79,14 +79,14 @@ Phases, one line each (more for the kernel table):
      for byte. In 4, 4b and 4c no global alignment may be left for worker2
      (cigar_late_lanes 0)
   4d. the engines: the hybrid (K3 and K4 on the card into the native C++
-     engine) at SA_CAP 0, 8, 16 and 64, twice each, and the native engine
-     at -@ 1 (twice) and at -@ os.cpu_count(), on the reads of phases 4 and
+     engine) at SA_CAP 0, 8, 16 and 64, once each, and the native engine
+     at -@ 1 and at -@ os.cpu_count(), on the reads of phases 4 and
      4b; every SAM must equal device-jax's of phases 4 and 4b byte for byte,
      K3 must launch in every hybrid run and K4's interval entry in every one
      with SA_CAP above 0; reads/s of each engine with the host's core count,
      the hybrid's inject and native seconds; the same sweep on 8192 reads
      of a genome with repeats (torch_testdata.repeat_dataset) at -@ 1 and
-     at -@ os.cpu_count(), twice each, SAM equal to the native engine's,
+     at -@ os.cpu_count(), once each, SAM equal to the native engine's,
      which equals device-jax's on the first 1024; the per-call set-up
      (index load, NativeAligner, DeviceSeeder) timed on its own; -V -@ 2
      through the native engine (its fork pool) once after CUDA init and
@@ -156,7 +156,20 @@ Phases, one line each (more for the kernel table):
      (kernels/fm_route.cu: smem_route_step, sa_route_step, route_gather)
      launched by the ranks' sharded calls (the counts each rank reports,
      added to the kernel table); the ranks also hold stage 8's kernels to
-     their plain versions on their shards, whose times give those rows;
+     their plain versions on their shards, with each walk's steps
+     (route_gather's row of the table); `align` under
+     BISCUIT_TPU_TORCH_INDEX_SHARD=2 as 2 ranks sharing the card (gloo) on
+     phase 4's 4096 reads and phase 4b's 2048 pairs: rank 0's SAM body equal
+     to phase 4d's one process, rank 1 no SAM, each rank seeding by
+     smem_route_step on its shard (K3 never) and walking SA by K4's interval
+     entry on the whole tables, with the routed seeder's steps a call, ms a
+     step and rows (the ranks' stderr); both step kernels at those shapes
+     (8192 lanes, 20,000 SA walks) on the same 2 shards under gloo, each
+     held to K3's / K4's output on the whole tables and to its plain version
+     on its shard, with its launches alone beside its whole call
+     (biscuit_tpu_torch/tools/route_bench.py --ranks 2 --plain: the kernel
+     table's rows), then under nccl in a group of one rank at several k
+     (steps enqueued between host reads), each held to K3's / K4's output;
      then, each in processes of its own on the card: shard_align -n 2 on
      phase 6's 40,000 reads under the default engine, its SAM body equal
      to phase 4d's one-process SAM, each worker launching K3 and K4's
@@ -175,6 +188,7 @@ import gc
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -182,6 +196,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()  # the script's start, for the phases' [t] lines
 SEED = 7
 GENOME, N_READS, READ_LEN = 5_000_000, 4096, 150
 N_PAIRS, DAMAGE_EVERY = 2048, 3  # phase 4b: pairs; every 3rd mate 2 damaged
@@ -1219,8 +1234,10 @@ K10_KERNELS = ("sw_extend", "chain_scan", "sw_local", "pileup_count",
                "smem_route_step", "sa_route_step", "route_gather")
 ROUTED = {"smem_route_step": "the routed seeder",
           "sa_route_step": "the routed SA walk",
-          "route_gather": "the local half of a step's gather"}
+          "route_gather": "the SA samples' gather at a walk's end"}
 DIST_READS = 8192
+# route_bench's k: steps of a routed walk enqueued between host reads
+ROUTE_KS = (1, 4, 8, 16, 32)
 
 
 def cli_launches(text, who):
@@ -1231,11 +1248,75 @@ def cli_launches(text, who):
     return found[-1] if found else {}
 
 
-def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows):
+def shard_align(card, table, tag, argv, want, n_reads):
+    """`align <argv>` under BISCUIT_TPU_TORCH_INDEX_SHARD=2 as 2 ranks
+    started with torchrun's variables, sharing the card (gloo): rank 0's SAM
+    body must be `want` (phase 4d's one process), rank 1 must print no SAM,
+    each rank must seed by smem_route_step on its shard (K3 never) and
+    resolve SA positions by K4's interval entry on the whole tables. Adds
+    the ranks' launches to the table and prints the routed walks' steps,
+    rows and times."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BISCUIT_TPU_TORCH_")}
+    env.update(PYTHONPATH=REPO, BISCUIT_TPU_TORCH_INDEX_SHARD="2",
+               WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "biscuit_tpu_torch.cli", "align", *argv],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(env, RANK=str(k), LOCAL_RANK=str(k))) for k in range(2)]
+    try:  # a rank out of lockstep leaves the other waiting in a collective
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for k, (p, (_so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: index-sharded rank {k} exited "
+                                 f"{p.returncode}: {se[-3000:]}")
+    body = [ln for ln in outs[0][0].splitlines() if not ln.startswith("@")]
+    if body != want or outs[1][0]:
+        raise AssertionError(f"{tag}: rank 0's SAM differs from phase 4d's "
+                             f"one process, or rank 1 printed SAM")
+    tag_w = "[main_align] routed walks: "
+    launches, walks = [], []
+    for _so, se in outs:
+        launches.append(cli_launches(se, "main_align"))
+        found = [json.loads(ln[len(tag_w):]) for ln in se.splitlines()
+                 if ln.startswith(tag_w)]
+        walks.append(found[-1]["smem_route_step"] if found else {})
+    for k, lk in enumerate(launches):
+        if lk.get("smem_route_step", 0) < 1 or lk.get("smem_seed", 0) or \
+                lk.get("sa_walk_intervals", 0) < 1:
+            raise AssertionError(f"{tag}: rank {k} launched {lk}")
+    for r in table:
+        r["launches"] += sum(lk.get(r["name"], 0) for lk in launches)
+    w = walks[0]
+    say(f"[7] align {tag} under BISCUIT_TPU_TORCH_INDEX_SHARD=2, 2 ranks "
+        f"sharing the card (gloo): {n_reads} reads, rank 0's SAM body == "
+        f"phase 4d's one process, rank 1 no SAM; wall {wall:.2f} s with both "
+        f"ranks' start; the ranks' launches {json.dumps(launches)} [{card}]")
+    say(f"[7] {tag} routed seeder on rank 0: {w['calls']} calls, "
+        f"{w['steps']} steps = {w['steps'] / w['calls']:.1f} a call, "
+        f"{w['rows']} rows asked; the whole call {w['call_ms'] / w['calls']:.4f}"
+        f" ms = {w['call_ms'] / w['steps']:.4f} ms a step; rank 1: "
+        f"{json.dumps(walks[1])} [{card}]")
+
+
+def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows,
+            shard):
     """7. K10 and the driver entry (see the module's docstring). table: the
     kernel rows, whose launches the phase adds to; gwant: phase 6's SAM
     body, which phase 4d's one-process runs equal; n_windows: phase 6's
-    windows, each of which every rank of the mesh must count on the card."""
+    windows, each of which every rank of the mesh must count on the card;
+    shard: (fa, fq, fq1, fq2, body, pbody) of phases 4 and 4b, the reads and
+    one-process SAM bodies of the index-sharded `align`."""
     import socket
 
     import torch
@@ -1243,7 +1324,8 @@ def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows):
     from biscuit_tpu_torch import kernels
     from biscuit_tpu_torch.config import MemOpt
     from biscuit_tpu_torch.graft_entry import dryrun_multichip, entry
-    from biscuit_tpu_torch.ops.seed_batch import collect_intv_flat_plain
+    from biscuit_tpu_torch.ops.seed_batch import (ROUTE_SYNC_EVERY,
+                                                  collect_intv_flat_plain)
     t_phase = time.perf_counter()
 
     # entry(): one batched K3 step on the card, against its plain version
@@ -1288,9 +1370,10 @@ def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows):
             r["launches"] += n_k3 + res["launches"].get("smem_seed", 0)
     # stage 8's kernels, held to their plain versions in the ranks on each
     # rank's shard (rank 0's numbers): the walks' times are whole calls,
-    # every step's launch and collective in them
+    # every step's launch and collective in them; the step kernels' rows
+    # are replaced below by their times at the main path's shapes
     for name, what in ROUTED.items():
-        err, ms, plain_ms, n_bytes, n_ops = res["routed"][name]
+        err, ms, plain_ms, n_bytes, n_ops, steps = res["routed"][name]
         bound_ms, bound_by = bound(n_bytes, n_ops)
         table.append({"name": name, "route": "cuda",
                       "source": "biscuit_tpu_torch/kernels/fm_route.cu",
@@ -1300,10 +1383,77 @@ def phase_7(work, card, table, gfa, gfq, gbam, vcf, gwant, n_windows):
                       "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                       "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
                       "library_ms": None, "paths": ["7"]})
+        alone = f"{steps} steps, " if steps else ""
         say(f"[7] {name} ({what}, stage 8 on rank 0's shard): kernel == "
-            f"plain (max |d| {err}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms, bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, "
-            f"{n_ops} operations) [{card}]")
+            f"plain (max |d| {err}); kernel {ms:.4f} ms ({alone}the whole "
+            f"call), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
+            f"{bound_by} ({n_bytes} bytes, {n_ops} operations) [{card}]")
+
+    # align on the index sharded over 2 ranks, at the full width of phases
+    # 4 and 4b
+    fa, fq, fq1, fq2, body, pbody = shard
+    shard_align(card, table, "SE", [fa, fq], body, N_READS)
+    shard_align(card, table, "PE", [fa, fq1, fq2], pbody, 2 * N_PAIRS)
+
+    # the step kernels at the main path's shapes (phase 4's 8192 lanes, and
+    # 20,000 SA walks), each held to K3's / K4's output on the whole tables:
+    # on the `align` above's 2 shards, the ranks sharing the card (gloo),
+    # and to its plain version on its shard (the kernel table's rows); then
+    # under nccl in a group of one rank (a shard of the whole tables), at
+    # each k steps enqueued between host reads
+    def route_bench(ranks, ks, *more):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "biscuit_tpu_torch.tools.route_bench",
+             "--data", os.path.dirname(fa), "--reads", str(N_READS),
+             "--ranks", str(ranks), "--ks", ",".join(map(str, ks)), *more],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:  # a rank out of lockstep leaves the others waiting
+            so, se = p.communicate(timeout=600)
+        finally:  # the ranks it spawned with it
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+        if p.returncode != 0:
+            raise AssertionError(f"route_bench --ranks {ranks} exited "
+                                 f"{p.returncode}: {se[-2000:]}")
+        return json.loads(so.strip().splitlines()[-1]), \
+            time.perf_counter() - t0
+
+    k = ROUTE_SYNC_EVERY
+    rb, secs = route_bench(2, (k,), "--plain")
+    for name, part in (("smem_route_step", rb["seed"][0]),
+                       ("sa_route_step", rb["sa"])):
+        n_bytes = part["rows"] * rb["row_bytes"] + rb["io_bytes"][name]
+        # an occ4 from a row: about 16 popcounts and 48 shifts, masks, adds
+        bound_ms, bound_by = bound(n_bytes, 64 * part["rows"])
+        row = next(r for r in table if r["name"] == name)
+        row.update(ms=round(part["call_ms"], 4),
+                   plain_ms=round(part["plain_ms"], 4),
+                   bound_ms=round(bound_ms, 6), bound_by=bound_by)
+        say(f"[7] {name} at the main path's shapes (route_bench, "
+            f"{rb['ranks']} ranks under {rb['backend']} sharing the card, "
+            f"{rb['lanes']} lanes / {rb['sa_jobs']} SA walks): kernel == "
+            f"plain on rank 0's shard == the whole tables' kernel; the whole "
+            f"call {part['call_ms']:.4f} ms, {part['steps']:.0f} steps "
+            f"({part['ms_a_step']:.4f} ms a step), the launches alone "
+            f"{part['launch_ms']:.4f} ms "
+            f"({part['launch_ms'] / part['steps']:.4f} ms a step, CUDA "
+            f"events), {part['rows']:.0f} rows asked; plain "
+            f"{part['plain_ms']:.4f} ms; bound {bound_ms:.6f} ms by "
+            f"{bound_by} ({n_bytes:.0f} bytes); {secs:.1f} s with the spawn "
+            f"[{card}]")
+    rb, secs = route_bench(1, ROUTE_KS)
+    say(f"[7] route_bench, {rb['ranks']} rank under {rb['backend']} (a "
+        f"shard of the whole tables): {rb['lanes']} lanes of "
+        f"{rb['read_len']} bp, seeds == K3's at every k of steps enqueued "
+        f"between host reads: " + "; ".join(
+            f"k={t['k']} {t['call_ms']:.3f} ms a call, {t['steps']:.0f} steps,"
+            f" {t['ms_a_step']:.4f} ms a step, launches alone "
+            f"{t['launch_ms']:.3f} ms" for t in rb["seed"])
+        + f"; the SA walk at k={k} {rb['sa']['call_ms']:.3f} ms, "
+        f"{rb['sa']['steps']:.0f} steps; {secs:.1f} s [{card}]")
 
     # the drivers, each in processes of its own on the card, under the
     # default engines
@@ -1489,6 +1639,7 @@ def smoke(work: str) -> int:
     say(f"[3] data: {GENOME} bp genome, {N_READS} x {READ_LEN} bp reads, index "
         f"built in {time.perf_counter() - t0:.1f} s")
 
+    say(f"[t] phase 3 starts at {time.perf_counter() - T0:.1f} s")
     # 3. each kernel against its plain version on the card
     rng = np.random.default_rng(SEED)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1972,14 +2123,20 @@ def smoke(work: str) -> int:
                 lambda: seed_batch.collect_intv_flat_plain(*a))
 
     def seed_check(name, f, lanes, n_lanes):
+        """(max |d|, kernel fn, got, the plain version's ms on this run)"""
         kf, pf = seed_fns(f, lanes, n_lanes)
-        got, want = kf(), pf()
+        got = kf()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pf()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         n = [torch.bincount(x[0].long(), minlength=n_lanes) for x in (got, want)]
         err = compare(name, (*got, n[0]), (*want, n[1]))
         if int(got[2].sum()) > n_lanes // 100 or got[1].shape[0] < n_lanes:
             raise AssertionError(f"{name}: {int(got[2].sum())} lanes flagged, "
                                  f"{got[1].shape[0]} rows for {n_lanes} lanes")
-        return err, kf, pf, got
+        return err, kf, got, plain_ms
 
     def host_rows(lanes, n_lanes, o):
         q_, l_, p_ = (x.cpu().numpy() for x in lanes)
@@ -1992,7 +2149,7 @@ def smoke(work: str) -> int:
                 for b in range(n_lanes)]
 
     B = lq.shape[0]
-    err, ks, ps, got = seed_check("smem_seed", fm, (lq, ll, lp), B)
+    err, ks, got, k3_plain_ms = seed_check("smem_seed", fm, (lq, ll, lp), B)
     # the first lanes against the host's exact smem.collect_intv
     if rows_of(got, 64) != host_rows((lq, ll, lp), 64, opt):
         raise AssertionError("smem_seed differs from collect_intv")
@@ -2079,7 +2236,7 @@ def smoke(work: str) -> int:
             n_flagged[S] = n_flagged.get(S, 0) + sum(flags)
     ms = k3[0]
     row("smem_seed", "smem_seed.cu", "biscuit_tpu/ops/seed_batch.py:1847", err,
-        ms, cuda_ms(ps, 1, warm=False),
+        ms, k3_plain_ms,
         f"B={B} lanes, L={lq.shape[1]}, narrow index (times), wide (equality), "
         f"{n_rows} rows; the wrapper {k3[0]:.4f} ms, the launch alone "
         f"{k3[1]:.4f} ms (wide index: {k3_wide:.4f} ms); + {n_cases} cases of "
@@ -2279,12 +2436,13 @@ def smoke(work: str) -> int:
         f"(fused tables {fmb.tab.numel() * 4 / 1e6:.0f} MB)")
     big = tuple(T(a) for a in lanes_of(bfq, N_READS))
     kb, _pb = seed_fns(fmb, big, B)
-    _err, _kb, pb, _got = seed_check("smem_seed 50 Mbp", fmb, big, BIG_CHECK)
+    _err, _kb, _got, big_plain_ms = seed_check("smem_seed 50 Mbp", fmb, big,
+                                               BIG_CHECK)
     big_alone = cuda_ms(lambda: seed_batch._launch_seed(
         fmb, *big, params, seed_batch.SEED_CAP), 10)
     say(f"[3] smem_seed 50 Mbp: kernel {cuda_ms(kb, 5):.4f} ms for {B} lanes "
         f"(the launch alone {big_alone:.4f} ms), "
-        f"plain {cuda_ms(pb, 1, warm=False):.4f} ms for {BIG_CHECK} lanes, equal on "
+        f"plain {big_plain_ms:.4f} ms for {BIG_CHECK} lanes, equal on "
         f"{BIG_CHECK} [{card}]")
     # K4 on the 50 Mbp tables at sa_intv 4 and on their sa_intv-32 view
     rb = T(rng.integers(0, fmb.seq_len + 1, n).astype(np.int32))
@@ -2314,6 +2472,7 @@ def smoke(work: str) -> int:
         for us, n_ev, key in by_name[:8]:
             say(f"[{tag}]   {us / 1e3:10.3f} ms  {n_ev:5d} x  {key[:90]}")
 
+    say(f"[t] phase 4 starts at {time.perf_counter() - T0:.1f} s")
     # 4. the SE align slice end to end, through the CLI entry point
     from biscuit_tpu_torch import cli
     from biscuit_tpu_torch.align import device_engine
@@ -2392,7 +2551,8 @@ def smoke(work: str) -> int:
     if mapped < 0.9 * N_READS:
         raise AssertionError(f"only {mapped} of {N_READS} reads mapped")
     # the first N_CHECK reads through the port's host engine
-    want, host_se_s = host_sam(read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK], 0)
+    want, host_se_s = host_sam(read_batch(fastq_iter(fq), None, 1 << 60)[:N_CHECK], 0,
+                               os.cpu_count() or 1)
     if not "".join(ln + "\n" for ln in body).startswith(want):
         raise AssertionError("device SAM differs from the host engine's "
                              f"in the first {N_CHECK} reads")
@@ -2706,6 +2866,7 @@ def smoke(work: str) -> int:
             f"capacities: {json.dumps(redone)}; {len(seqs) / wwall:.1f} reads/s, wall "
             f"{wwall:.2f} s [{card}]")
 
+    say(f"[t] phase 4d starts at {time.perf_counter() - T0:.1f} s")
     # 4d. the engines: the hybrid (`device`, the CLI's default: K3 and K4 on
     # the card, chaining, extension and SAM in the native C++ engine), the
     # native engine alone and `device-jax` (phases 4 and 4b) on the same
@@ -2760,28 +2921,27 @@ def smoke(work: str) -> int:
     sweep = {}
     for tag, argv, want, n in (("SE", [fa, fq], body, N_READS),
                                ("PE", [fa, fq1, fq2], pbody, 2 * N_PAIRS)):
-        for rep_i in range(2):
-            for cap in SA_CAPS:
-                hbody, hwall, hl, hrep = engine_run("device", argv, cap)
-                if hbody != want:
-                    raise AssertionError(f"{tag} hybrid SAM at SA_CAP {cap} "
-                                         "differs from device-jax's")
-                if hl.get("smem_seed", 0) < 1 or (
-                        (hl.get("sa_walk_intervals", 0) > 0) != (cap > 0)):
-                    raise AssertionError(f"{tag} hybrid at SA_CAP {cap}: "
-                                         f"launches {hl}")
-                if cap in (cap0, 64) and rep_i == 0:
-                    for k in k34:
-                        hyb_launch[k] += hl.get(k, 0)
-                sweep.setdefault((tag, cap), []).append(hwall)
-                say(f"[4d] {tag} hybrid SA_CAP {cap}: {rps(n, hwall)}; inject "
-                    f"{hrep.get('inject', 0):.3f} s, native "
-                    f"{hrep.get('native', 0):.3f} s; seed_overflow_lanes "
-                    f"{hrep['seed_overflow_lanes']}, sa_rows {hrep['sa_rows']}, "
-                    f"sa_jobs {hrep['sa_jobs']}; launches "
-                    f"{json.dumps({k: hl.get(k, 0) for k in k34})}; SAM == "
-                    f"device-jax's [{card}]")
-        for threads in (1, 1, ncpu):
+        for cap in SA_CAPS:
+            hbody, hwall, hl, hrep = engine_run("device", argv, cap)
+            if hbody != want:
+                raise AssertionError(f"{tag} hybrid SAM at SA_CAP {cap} "
+                                     "differs from device-jax's")
+            if hl.get("smem_seed", 0) < 1 or (
+                    (hl.get("sa_walk_intervals", 0) > 0) != (cap > 0)):
+                raise AssertionError(f"{tag} hybrid at SA_CAP {cap}: "
+                                     f"launches {hl}")
+            if cap in (cap0, 64):
+                for k in k34:
+                    hyb_launch[k] += hl.get(k, 0)
+            sweep.setdefault((tag, cap), []).append(hwall)
+            say(f"[4d] {tag} hybrid SA_CAP {cap}: {rps(n, hwall)}; inject "
+                f"{hrep.get('inject', 0):.3f} s, native "
+                f"{hrep.get('native', 0):.3f} s; seed_overflow_lanes "
+                f"{hrep['seed_overflow_lanes']}, sa_rows {hrep['sa_rows']}, "
+                f"sa_jobs {hrep['sa_jobs']}; launches "
+                f"{json.dumps({k: hl.get(k, 0) for k in k34})}; SAM == "
+                f"device-jax's [{card}]")
+        for threads in (1, ncpu):
             nbody, nwall, nl, _nrep = engine_run("native", argv, threads=threads)
             if nbody != want or any(nl.values()):
                 raise AssertionError(f"{tag} native SAM differs from "
@@ -2797,7 +2957,7 @@ def smoke(work: str) -> int:
             f"{hrep.get('inject', 0):.3f} s, native "
             f"{hrep.get('native', 0):.3f} s [{card}]")
     for tag in ("SE", "PE"):
-        say(f"[4d] {tag} SA_CAP sweep, reads/s of two runs each: " + "; ".join(
+        say(f"[4d] {tag} SA_CAP sweep, reads/s: " + "; ".join(
             f"{cap}: " + ", ".join(f"{(N_READS if tag == 'SE' else 2 * N_PAIRS) / w:.1f}"
                                    for w in sweep[tag, cap]) for cap in SA_CAPS)
             + f" (default {cap0}; os.cpu_count() {ncpu}) [{card}]")
@@ -2832,7 +2992,7 @@ def smoke(work: str) -> int:
         f"{rps(N_REP, rwall)}; its SAM == device-jax's on the first "
         f"{N_REP_CHECK} (device-jax {rps(N_REP_CHECK, cwall)}) [{card}]")
     rsweep = {}
-    for threads in (1, 1, ncpu, ncpu):
+    for threads in (1, ncpu):
         for cap in SA_CAPS:
             hbody, hwall, hl, hrep = engine_run("device", [rfa, rfq], cap,
                                                 threads)
@@ -2847,8 +3007,7 @@ def smoke(work: str) -> int:
                 f"native {hrep.get('native', 0):.3f} s; sa_rows "
                 f"{hrep['sa_rows']}, sa_jobs {hrep['sa_jobs']} [{card}]")
     for threads in (1, ncpu):
-        say(f"[4d] repeats SA_CAP sweep at -@ {threads}, reads/s of two runs "
-            "each: " + "; ".join(
+        say(f"[4d] repeats SA_CAP sweep at -@ {threads}, reads/s: " + "; ".join(
             f"{cap}: " + ", ".join(f"{N_REP / w:.1f}" for w in
                                    rsweep[threads, cap]) for cap in SA_CAPS)
             + f" (default {cap0}; os.cpu_count() {ncpu}) [{card}]")
@@ -2899,6 +3058,7 @@ def smoke(work: str) -> int:
         f"{hrep.get('native', 0):.3f} s [{card}]")
     say_busy("4d", prof, hwall, "smem_seed_kernel")
 
+    say(f"[t] phase 6 starts at {time.perf_counter() - T0:.1f} s")
     # 6. the pileup slice end to end: align on the card, sort, pileup on the
     # card through the CLI, against the same CLI on the CPU
     from biscuit_tpu_torch.pileup import engine as plp_engine
@@ -3085,8 +3245,10 @@ def smoke(work: str) -> int:
     phase_6b(work, card, pileup, vcf_lines, gfa, gsam, gbam, vcf_gpu,
              len(sites), [t_plp, t_plp2])
     phase_6d(work, card, gfa, gfq, gbam, vcf_gpu, fa, fq1, fq2)
-    phase_7(work, card, table, gfa, gfq, gbam, vcf_gpu, gwant, n_windows)
+    phase_7(work, card, table, gfa, gfq, gbam, vcf_gpu, gwant, n_windows,
+            (fa, fq, fq1, fq2, body, pbody))
 
+    say(f"[t] phase 5 starts at {time.perf_counter() - T0:.1f} s")
     # 5. neither jax nor the JAX package was imported
     theirs = [m for m in sys.modules if m in ("jax", "biscuit_tpu")
               or m.startswith(("jax.", "biscuit_tpu."))]

@@ -488,6 +488,7 @@ SWITCHES = {"BISCUIT_TPU_STREAMS": "BISCUIT_TPU_TORCH_STREAMS",
             "BISCUIT_TPU_FASTQ_STRIDE": "BISCUIT_TPU_TORCH_FASTQ_STRIDE",
             "BISCUIT_TPU_PES_EXCHANGE": "BISCUIT_TPU_TORCH_PES_EXCHANGE",
             "BISCUIT_TPU_MA_RAW": "BISCUIT_TPU_TORCH_MA_RAW",
+            "BISCUIT_TPU_INDEX_SHARD": "BISCUIT_TPU_TORCH_INDEX_SHARD",
             "biscuit_tpu.cli": "biscuit_tpu_torch.cli"}
 
 

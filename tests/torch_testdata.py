@@ -52,7 +52,8 @@ def make_dataset(d, genome_size=60000, n_reads=150, n_chroms=2, seed=11,
 # the environment switches of both packages' CLIs: a CLI test clears them,
 # so that each run names its own
 SWITCHES = ("BISCUIT_TPU_PILEUP", "BISCUIT_TPU_STREAMS",
-            "BISCUIT_TPU_TORCH_PILEUP", "BISCUIT_TPU_TORCH_STREAMS")
+            "BISCUIT_TPU_TORCH_PILEUP", "BISCUIT_TPU_TORCH_STREAMS",
+            "BISCUIT_TPU_INDEX_SHARD", "BISCUIT_TPU_TORCH_INDEX_SHARD")
 
 
 def cli_env(**more):
