@@ -52,7 +52,6 @@ import functools
 import math
 import os
 import threading
-import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -61,6 +60,10 @@ import torch
 from ..config import MemOpt, MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_REF_HDR
 from ..ops import sw
 from ..align.io_helpers import read_clipping
+from ..utils import spans
+# the engines' stage report and its reset (utils/spans.py), re-exported for
+# the benchmark, chip_smoke.py and the tests
+from ..utils.spans import reset_stages, stage_report  # noqa: F401
 
 from ..ops.seed_batch import (FMPair, collect_intv_batch, collect_intv_flat,
                               sa_batch_intervals, seed_lane_bytes)
@@ -76,9 +79,7 @@ from .region import AlnRegs, chain2region_gen, matesw_batch, merge_regions
 from .smem import collect_intv
 from .pipeline import AlignerState, bsconvert, worker2_pe, worker2_se
 
-# stage wall-clock accumulator: seconds per stage, read by stage_report()
-_STAGE_T: Dict[str, float] = {}
-# lane counts, read by stage_report(). The *_lanes past a device capacity
+# lane counts, in every stage_report(). The *_lanes past a device capacity
 # contract are each redone exactly on the host (a capacity contract, not a
 # fallback): seeding lanes over the seeder's S rows (smem.collect_intv),
 # chaining lanes over the scan's KMAX, JMAX or NC (chain.mem_chain),
@@ -89,49 +90,10 @@ _STAGE_T: Dict[str, float] = {}
 # sa_rows, sa_jobs: the seeder's rows and their occurrences sent to K4's
 # interval entry; sa_overflow_jobs: occurrences of host-seeded lanes sent to
 # it in the same call.
-_COUNTS = {"seed_overflow_lanes": 0, "chain_host_lanes": 0,
-           "traceback_overflow_lanes": 0, "rescue_lanes": 0,
-           "cigar_late_lanes": 0, "sa_rows": 0, "sa_jobs": 0,
-           "sa_overflow_jobs": 0}
-# stages whose work runs on the device, as the JAX engine counts them
-_DEVICE_STAGES = ("seed", "sa", "chain_scan", "extend", "cigar", "rescue",
-                  "inject")
-
-
-# guards the two tables above where the hybrid's injector thread adds to them
-_LOCK = threading.Lock()
-
-
-class _stage:
-    def __init__(self, name: str):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self.t0
-        with _LOCK:
-            _STAGE_T[self.name] = _STAGE_T.get(self.name, 0.0) + dt
-
-
-def stage_report() -> Dict[str, float]:
-    """Per-stage seconds, the share of the device-dispatching stages, the
-    counts of lanes redone on the host and of the lanes of mate rescue."""
-    total = sum(_STAGE_T.values())
-    dev = sum(_STAGE_T.get(k, 0.0) for k in _DEVICE_STAGES)
-    rep = dict(_STAGE_T)
-    rep["total_s"] = total
-    rep["device_share"] = dev / total if total else 0.0
-    rep.update(_COUNTS)
-    return rep
-
-
-def reset_stages() -> None:
-    _STAGE_T.clear()
-    for k in _COUNTS:
-        _COUNTS[k] = 0
-
+LANE_COUNTS = ("seed_overflow_lanes", "chain_host_lanes",
+               "traceback_overflow_lanes", "rescue_lanes", "cigar_late_lanes",
+               "sa_rows", "sa_jobs", "sa_overflow_jobs")
+spans.declare(*LANE_COUNTS)
 
 SA_PREFETCH_CAP = 64
 # reads per device sweep (as in the JAX engine)
@@ -174,7 +136,8 @@ class DeviceAligner:
         whole tables, as in the JAX engine."""
         self.st = st
         self.device = torch.device(device)
-        self.fmpair = FMPair.from_index(st.idx, self.device)
+        with spans.span("setup.seeder_tables"):
+            self.fmpair = FMPair.from_index(st.idx, self.device)
         self.seeder = None
         if mesh is not None:
             from ..parallel.mesh import index_sharded_seeder
@@ -197,7 +160,7 @@ class DeviceAligner:
             res, n_lanes = sw_align_batch(reqs, opt.o_del, opt.e_del,
                                           opt.o_ins, opt.e_ins, mats_np,
                                           xsubo, self.device)
-            _COUNTS["rescue_lanes"] += n_lanes
+            spans.count("rescue_lanes", n_lanes)
             return res
         return fn
 
@@ -207,7 +170,7 @@ class DeviceAligner:
         position lookups."""
         st = self.st
         fmp = self.fmpair
-        with _stage("seed"):
+        with spans.stage("seed"):
             q, lens, parents = pack_lanes(lanes)
             parents = self._tensor(parents)
             seeds, overflow, lane_of, rows = collect_intv_batch(
@@ -218,9 +181,9 @@ class DeviceAligner:
                 s, p = lanes[i]
                 fm, fmc = st.fm_pair(p)
                 seeds[i] = collect_intv(opt, fm, fmc, bsconvert(s, p))
-            _COUNTS["seed_overflow_lanes"] += int(overflow.sum())
+            spans.count("seed_overflow_lanes", int(overflow.sum()))
 
-        with _stage("sa"):
+        with spans.stage("sa"):
             # the first SA_PREFETCH_CAP occurrences of every seed, in one call
             # of K4's interval entry: the seeder's rows as they lie on the
             # card, then the rows of the lanes the host seeded, each lane's
@@ -242,9 +205,9 @@ class DeviceAligner:
                 torch.cumsum(kmax_row, 0) - kmax_row, int(kmax.sum()))
             pos = pos.cpu().numpy()
             n_ov = int(ov_kmax.sum())
-            _COUNTS["sa_rows"] += int(sizes.size)
-            _COUNTS["sa_jobs"] += int(kmax.sum()) - n_ov
-            _COUNTS["sa_overflow_jobs"] += n_ov
+            spans.count("sa_rows", int(sizes.size))
+            spans.count("sa_jobs", int(kmax.sum()) - n_ov)
+            spans.count("sa_overflow_jobs", n_ov)
 
         lookups = []
         kmax, off = kmax.tolist(), off.tolist()
@@ -359,7 +322,7 @@ class DeviceAligner:
                                np.where(ovh, 0, n_ops.cpu().numpy()))
         for i, (key, qq, rr, w, parent) in enumerate(reqs):
             if ovh[i]:
-                _COUNTS["traceback_overflow_lanes"] += 1
+                spans.count("traceback_overflow_lanes")
                 mat = (opt.ctmat if parent else opt.gamat)
                 out[key] = sw.sw_global(
                     qq, rr, mat, opt.o_del, opt.e_del, opt.o_ins,
@@ -398,13 +361,13 @@ class DeviceAligner:
         # the host path, as in the JAX engine
         dev_chains = [None] * len(lane_plan)
         if trace.verbose < 4:
-            with _stage("chain_scan"):
+            with spans.stage("chain_scan"):
                 jobs = [(seqs[si].l_seq, parent, seeds[li], lookups[li])
                         for li, (si, parent) in enumerate(lane_plan)]
                 dev_chains = mem_chain_batch(opt, idx, jobs, self.device)
-                _COUNTS["chain_host_lanes"] += sum(
-                    c is None for c in dev_chains)
-        with _stage("chain"):
+                spans.count("chain_host_lanes",
+                            sum(c is None for c in dev_chains))
+        with spans.stage("chain"):
             for li, (si, parent) in enumerate(lane_plan):
                 s = seqs[si]
                 chns = dev_chains[li]
@@ -428,11 +391,11 @@ class DeviceAligner:
         by_read: Dict[int, List] = {}
         for gen_parent, (si, _p) in zip(gens, lane_plan):
             by_read.setdefault(si, []).append(gen_parent)
-        with _stage("extend"):
+        with spans.stage("extend"):
             self._extend_scheduled(
                 opt, [_chain_generators(lst) for lst in by_read.values()])
 
-        with _stage("chain"):
+        with spans.stage("chain"):
             for si, s in enumerate(seqs):
                 merge_regions(opt, idx, s.seq, s.l_seq, all_regs[si])
         return all_regs
@@ -510,7 +473,7 @@ def cigar_fn(opt: MemOpt, dev: DeviceAligner, cache: Dict):
         key = (id(reg), int(w))
         hit = cache.get(key)
         if hit is None:
-            _COUNTS["cigar_late_lanes"] += 1
+            spans.count("cigar_late_lanes")
             hit = cache[key] = dev.sw_global_batch(
                 opt, [(key, query, rseq, int(w), reg.parent)])[key]
         return hit
@@ -553,6 +516,7 @@ def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
             raise ValueError("process_seqs_device needs an engine or a device")
         engine = DeviceAligner(st, device)
     pe = bool(opt.flag & MEM_F_PE)
+    spans.set_chunk(n_processed)
     if pe:
         for i in range(0, len(seqs), 2):
             s1, s2 = seqs[i], seqs[i + 1]
@@ -576,9 +540,9 @@ def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     global_fn = None
     if not pe:
         if prefill:
-            with _stage("cigar"):
+            with spans.stage("cigar"):
                 global_fn = _prefill(opt, st, engine, seqs, all_regs)
-        with _stage("worker2"):
+        with spans.stage("worker2"):
             for i, s in enumerate(seqs):
                 worker2_se(opt, st, s, all_regs[i], n_processed, i, rg_id,
                            global_fn=global_fn)
@@ -594,12 +558,12 @@ def process_seqs_device(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
         # first (every candidate's ksw_align2 in one K7 batch, replayed per
         # pair on the host), then prefill, then worker2 skips rescue
         if not (opt.flag & MEM_F_NO_RESCUE):
-            with _stage("rescue"):
+            with spans.stage("rescue"):
                 matesw_batch(opt, st.idx, pes, pairs,
                              engine.sw_local_batch_fn(opt))
-        with _stage("cigar"):
+        with spans.stage("cigar"):
             global_fn = _prefill(opt, st, engine, seqs, all_regs)
-    with _stage("worker2"):
+    with spans.stage("worker2"):
         for i, (sq, rp) in enumerate(pairs):
             worker2_pe(opt, st, sq, rp, pes, n_processed, i, rg_id,
                        skip_rescue=prefill, global_fn=global_fn)
@@ -711,7 +675,7 @@ class DeviceSeeder:
             return None
         stream = (torch.cuda.stream(self.stream) if self.stream is not None
                   else contextlib.nullcontext())
-        with _stage("inject"), stream:
+        with spans.stage("inject"), stream:
             return self._inject(opt, seqs, pe)
 
     def _host(self, *tensors):
@@ -720,77 +684,94 @@ class DeviceSeeder:
         for before the C++ engine reads them."""
         if self.stream is None:
             return tensors
-        out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    .copy_(t, non_blocking=True) for t in tensors)
-        self.stream.synchronize()
+        with spans.span("inject.pin"):
+            out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        .copy_(t, non_blocking=True) for t in tensors)
+        with spans.span("inject.wait"):
+            self.stream.synchronize()
         return out
 
     def _inject(self, opt: MemOpt, seqs, pe: bool):
+        """The injection of build_injection, in the spans `inject.lanes`,
+        `inject.to_card`, `inject.seed`, `inject.group`, `inject.sa`,
+        `inject.pin`, `inject.wait` and `inject.arrays`."""
         from .native_engine import SeedInjC, _ptr
         fmp, dev = self.fmpair, self.device
         n = len(seqs)
-        keys = self.lane_keys(opt, n, pe)
-        B = len(keys)
-        # the reads, padded with 4, go to the device once; each lane is
-        # converted there as pipeline.bsconvert converts it (parent strand
-        # C>T: 1 -> 3, daughter G>A: 2 -> 0)
-        lens = np.fromiter((s.l_seq for s in seqs), np.int64, n)
-        L = max(int(lens.max()), 1)
-        reads = np.full((n, L), 4, np.uint8)
-        reads[np.repeat(np.arange(n), lens),
-              np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
-                                                     lens)] = \
-            np.concatenate([s.seq for s in seqs])
-        T = lambda a: torch.from_numpy(a).to(dev)
-        reads, lens, key = T(reads), T(lens).int(), T(keys)
-        step = self.sweep_lanes(L)
-        seed = self.seeder or functools.partial(collect_intv_flat, fmp)
-        lane_parts, row_parts, ov_parts = [], [], []
-        for lo in range(0, B, step):
-            k = key[lo:lo + step]
-            q = reads[k >> 1].int()
-            par = (k & 1).bool()[:, None]
-            q = torch.where(par & (q == 1), 3, torch.where(~par & (q == 2), 0, q))
-            lane_of, rows, ov = seed(q, lens[k >> 1], (k & 1).int(), opt)
-            lane_parts.append(lane_of.long() + lo)
-            row_parts.append(rows)
-            ov_parts.append(ov)
-        # rows grouped by lane key, each lane's in the seeder's order: an
-        # even PE read seeds its parent strand (key + 1) first
-        key_row, order = torch.sort(key[torch.cat(lane_parts)], stable=True)
-        rows = torch.cat(row_parts)[order]
-        M = rows.shape[0]
-        lane_off = torch.zeros(2 * n + 1, dtype=torch.int64, device=dev)
-        lane_off[1:] = torch.bincount(key_row, minlength=2 * n).cumsum(0)
-        has = torch.zeros(2 * n, dtype=torch.uint8, device=dev)
-        has[key[~torch.cat(ov_parts)]] = 1
-        # sa_off, the exclusive prefix sum of each row's min(size, SA_CAP),
-        # gives both K4's offsets and its total
-        kmax = rows[:, 4].long().clamp(max=self.SA_CAP)
-        sa_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
-        sa_off[1:] = kmax.cumsum(0)
+        with spans.span("inject.lanes"):
+            keys = self.lane_keys(opt, n, pe)
+            B = len(keys)
+            # the reads, padded with 4, go to the device once; each lane is
+            # converted there as pipeline.bsconvert converts it (parent
+            # strand C>T: 1 -> 3, daughter G>A: 2 -> 0)
+            lens = np.fromiter((s.l_seq for s in seqs), np.int64, n)
+            L = max(int(lens.max()), 1)
+            reads = np.full((n, L), 4, np.uint8)
+            reads[np.repeat(np.arange(n), lens),
+                  np.arange(int(lens.sum()))
+                  - np.repeat(np.cumsum(lens) - lens, lens)] = \
+                np.concatenate([s.seq for s in seqs])
+        with spans.span("inject.to_card"):
+            if dev.type != "cpu":
+                spans.count("inject.pageable_bytes",
+                            reads.nbytes + lens.nbytes + keys.nbytes)
+            T = lambda a: torch.from_numpy(a).to(dev)
+            reads, lens, key = T(reads), T(lens).int(), T(keys)
+        with spans.span("inject.seed"):
+            step = self.sweep_lanes(L)
+            seed = self.seeder or functools.partial(collect_intv_flat, fmp)
+            lane_parts, row_parts, ov_parts = [], [], []
+            for lo in range(0, B, step):
+                k = key[lo:lo + step]
+                q = reads[k >> 1].int()
+                par = (k & 1).bool()[:, None]
+                q = torch.where(par & (q == 1), 3,
+                                torch.where(~par & (q == 2), 0, q))
+                lane_of, rows, ov = seed(q, lens[k >> 1], (k & 1).int(), opt)
+                lane_parts.append(lane_of.long() + lo)
+                row_parts.append(rows)
+                ov_parts.append(ov)
+        with spans.span("inject.group"):
+            # rows grouped by lane key, each lane's in the seeder's order: an
+            # even PE read seeds its parent strand (key + 1) first
+            key_row, order = torch.sort(key[torch.cat(lane_parts)],
+                                        stable=True)
+            rows = torch.cat(row_parts)[order]
+            M = rows.shape[0]
+            lane_off = torch.zeros(2 * n + 1, dtype=torch.int64, device=dev)
+            lane_off[1:] = torch.bincount(key_row, minlength=2 * n).cumsum(0)
+            has = torch.zeros(2 * n, dtype=torch.uint8, device=dev)
+            has[key[~torch.cat(ov_parts)]] = 1
+            # sa_off, the exclusive prefix sum of each row's min(size,
+            # SA_CAP), gives both K4's offsets and its total
+            kmax = rows[:, 4].long().clamp(max=self.SA_CAP)
+            sa_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+            sa_off[1:] = kmax.cumsum(0)
         h_has, h_lane_off, h_se, h_xs, h_sa_off = self._host(
             has, lane_off, rows[:, :2].int().contiguous(),
             rows[:, 2:].long().contiguous(), sa_off)
         total = int(h_sa_off[-1])
         if total:
-            h_pos, = self._host(sa_batch_intervals(
-                fmp, key_row & 1, rows[:, 2], kmax, sa_off[:-1], total).long())
+            with spans.span("inject.sa"):
+                pos = sa_batch_intervals(fmp, key_row & 1, rows[:, 2], kmax,
+                                         sa_off[:-1], total).long()
+            h_pos, = self._host(pos)
             sa_pos = h_pos.numpy()
         else:
             sa_pos = np.zeros(1, np.int64)
-        has_np, lane_off_np, sa_off_np = (t.numpy() for t in (h_has, h_lane_off,
-                                                              h_sa_off))
-        rows_se = h_se.numpy() if M else np.zeros((1, 2), np.int32)
-        rows_xs = h_xs.numpy() if M else np.zeros((1, 3), np.int64)
-        with _LOCK:
-            _COUNTS["seed_overflow_lanes"] += B - int(has_np.sum())
-            _COUNTS["sa_rows"] += M
-            _COUNTS["sa_jobs"] += total
-        inj = SeedInjC()
-        arrays = (has_np, lane_off_np, rows_se, rows_xs, sa_off_np, sa_pos)
-        (inj.has, inj.lane_off, inj.rows_se, inj.rows_xs, inj.sa_off,
-         inj.sa_pos) = (ctypes.cast(_ptr(a), ctypes.c_void_p) for a in arrays)
+        with spans.span("inject.arrays"):
+            has_np, lane_off_np, sa_off_np = (
+                t.numpy() for t in (h_has, h_lane_off, h_sa_off))
+            rows_se = h_se.numpy() if M else np.zeros((1, 2), np.int32)
+            rows_xs = h_xs.numpy() if M else np.zeros((1, 3), np.int64)
+            spans.count("seed_overflow_lanes", B - int(has_np.sum()))
+            spans.count("sa_rows", M)
+            spans.count("sa_jobs", total)
+            inj = SeedInjC()
+            arrays = (has_np, lane_off_np, rows_se, rows_xs, sa_off_np, sa_pos)
+            (inj.has, inj.lane_off, inj.rows_se, inj.rows_xs, inj.sa_off,
+             inj.sa_pos) = (ctypes.cast(_ptr(a), ctypes.c_void_p)
+                            for a in arrays)
         return inj, arrays + (h_has, h_lane_off, h_se, h_xs, h_sa_off)
 
 
@@ -835,7 +816,12 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     (insert-size statistics span it, bwamem.c:464-467).
     BISCUIT_TPU_HYBRID_PIPELINE=0 runs serially. Stages: `inject` (the
     seeder, in whichever thread builds the injection) and `native` (the
-    native engine); their sum over the wall shows the overlap.
+    native engine); their sum over the wall shows the overlap. Spans (the
+    registry of utils/spans.py, under the chunk's first read number):
+    `clip` around each loop of read_clipping, `inject`'s parts
+    (DeviceSeeder._inject) and `native`'s (`engine` runs through
+    align/traced_native.traced's TracedAligner: the marshalling, the C++
+    call and its phases, the SAM's decoding, the reads handed back).
 
     A chunk the fused C++ entries cannot take whole (fused) runs through
     the device engine (process_seqs_device) on the seeder's device and
@@ -847,13 +833,15 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     an index-sharded run, whose seeding calls must meet rank 0's); a chunk
     for the device engine runs there whole all the same."""
     import queue
-    from .native_engine import NativeAligner, process_seqs_native
-    nat = engine if isinstance(engine, NativeAligner) else NativeAligner(st)
+    from .native_engine import process_seqs_native
+    from .traced_native import traced
+    nat = traced(engine, st)
     if seeder is None:
         if device is None:
             raise ValueError("process_seqs_hybrid needs a seeder or a device")
         seeder = DeviceSeeder(st, device)
     pe = bool(opt.flag & MEM_F_PE)
+    spans.set_chunk(n_processed)
     if not fused(opt, seqs):
         process_seqs_device(opt, st, seqs, n_processed, pes0, rg_id,
                             engine=seeder.aligner())
@@ -862,15 +850,16 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     def native(sub, lo, inj):
         if seed_only:
             return
-        with _stage("native"):
+        with spans.stage("native"):
             process_seqs_native(opt, st, sub, n_processed + lo, pes0, rg_id,
                                 engine=nat, inj_pre=inj, pre_clipped=True)
 
     if pe or len(seqs) <= DEVICE_BATCH or \
             os.environ.get("BISCUIT_TPU_HYBRID_PIPELINE", "1") == "0":
-        for s in seqs:
-            read_clipping(s, opt.adaptor1 if (not pe or s.id % 2 == 0)
-                          else opt.adaptor2, opt)
+        with spans.span("clip"):
+            for s in seqs:
+                read_clipping(s, opt.adaptor1 if (not pe or s.id % 2 == 0)
+                              else opt.adaptor2, opt)
         native(seqs, 0, seeder.build_injection(opt, seqs, pe))
         return
     subs = [seqs[lo:lo + DEVICE_BATCH]
@@ -880,8 +869,9 @@ def process_seqs_hybrid(opt: MemOpt, st: AlignerState, seqs, n_processed: int,
     def _injector():
         try:
             for sub in subs:
-                for s in sub:
-                    read_clipping(s, opt.adaptor1, opt)
+                with spans.span("clip"):
+                    for s in sub:
+                        read_clipping(s, opt.adaptor1, opt)
                 q.put((sub, seeder.build_injection(opt, sub, False)))
         except BaseException as e:  # surface in the consumer
             q.put(e)

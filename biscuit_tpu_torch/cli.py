@@ -127,7 +127,8 @@ def main_align(argv):
     from .align.pipeline import AlignerState, process_seqs, sam_header
     from .align.device_engine import (DeviceAligner, DeviceSeeder,
                                       process_seqs_device, process_seqs_hybrid)
-    from .align.native_engine import NativeAligner, process_seqs_native
+    from .align.native_engine import process_seqs_native
+    from .align.traced_native import traced
     from .device import resolve
 
     opt = MemOpt()
@@ -426,11 +427,11 @@ Input/output options:
 
     dev = nat = sdr = None
     if engine == "device":
-        nat, sdr = NativeAligner(st), DeviceSeeder(st, device, mesh)
+        nat, sdr = traced(None, st), DeviceSeeder(st, device, mesh)
     elif engine == "device-jax":
         dev = DeviceAligner(st, device, mesh=mesh)
     elif engine == "native":
-        nat = NativeAligner(st)
+        nat = traced(None, st)
 
     def run_batch(seqs, n_processed):
         import time as _time
