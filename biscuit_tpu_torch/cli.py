@@ -571,8 +571,9 @@ def report_launches(who: str) -> None:
 # pileup's engines, picked by BISCUIT_TPU_TORCH_PILEUP (default
 # PILEUP_DEFAULT):
 # device  the count matrices of every window made on the device named by
-#         BISCUIT_TPU_TORCH_DEVICE (K9, ops/pileup_count.py), the rest of
-#         the window in Python
+#         BISCUIT_TPU_TORCH_DEVICE (K9, ops/pileup_count.py); on BAM input
+#         the rest of the window is one C++ walk over the raw records
+#         (pileup/walk.py), on SAM input Python
 # native  the C++ window engine (native/pileup_native.cpp) on raw BAM
 #         records, read from the decompressed BAM or, where a .bai lies
 #         beside it, block by block; on record objects for SAM input. No
@@ -730,9 +731,10 @@ Genotyping options:
         device = make_mesh(world, device)
         writes = rank == 0
     t_open = time.perf_counter()
-    # raw-BAM fast path: the C++ engine parses records straight from the
-    # decompressed blob (fork workers share it copy-on-write)
-    if (engine == "native" and not conf.comm.verbose
+    # raw-BAM fast path: the C++ engine, and the device engine's C++ walk
+    # (pileup/walk.py), parse records straight from the decompressed blob
+    # (fork workers share it copy-on-write)
+    if (engine in ("native", "device") and not conf.comm.verbose
             and all(_is_bam(fn) for fn in in_fns)):
         from .pileup.native import raw_bam_open
         # with a usable .bai, stream each window's blocks (bounded memory);

@@ -16,6 +16,11 @@ engine: `_pileup_window_fast` takes the device and always calls
 the fused window count (ops/pileup_count.pileup_window_counts: a CUDA
 kernel on the card, its plain version on the CPU) over inputs staged in
 reused host buffers; that is the source's BISCUIT_TPU_PILEUP=device path.
+Over raw BAM records (the sources of pileup/native.py, which the CLI opens
+for this engine as for `native`) a window of the `device` engine is one C++
+walk instead (pileup/walk.py over pileup/walk_host.cpp): the records decoded
+into the datum arrays `_pileup_window_fast` makes, counted by the same
+`_device_counts`, the VCF text formatted from the counts.
 A `Mesh` (parallel/mesh.py) is the `mesh` engine, the source's
 BISCUIT_TPU_PILEUP=mesh: `_device_counts` counts this rank's contiguous
 slice of the window's data with the same fused window count on the rank's
@@ -60,16 +65,18 @@ from ..parallel.mesh import Mesh, group_sum, shard_bounds
 # (the windows a fork pool's workers compute are counted in the workers and
 # never reach the parent: only the in-process path is covered): open (the
 # CLI's opening of the BAMs and the reference), read decode (BAM fetch,
-# filters, per-read base extraction), count (datum arrays to the device,
-# the fused window count, counts back), emit (emit mask and plp_format),
-# native (a window of the C++ engine, decode to VCF text); with the windows
-# that held data (the C++ engine: every window it ran), their data (device
-# engine), the VCF lines and the chunks of data that the kernel counted in
-# device memory for want of room in its shared memory (none on the plain
-# route)
+# filters, per-read base extraction, on raw records the C++ walk's,
+# pileup/walk.py; and the data's staging), count (the staged data to the
+# device, the fused window count, counts back), emit (emit mask and
+# plp_format; on raw records the C++ walk's formatting), native (a window of the C++ engine,
+# decode to VCF text); with the windows that held data (the C++ engine:
+# every window it ran), those of them the device engine's C++ walk decoded
+# and emitted (raw_windows), their data (device engine), the VCF lines and
+# the chunks of data that the kernel counted in device memory for want of
+# room in its shared memory (none on the plain route)
 STAGES = {"open": 0.0, "decode": 0.0, "count": 0.0, "emit": 0.0,
-          "native": 0.0, "windows": 0, "data": 0, "sites": 0,
-          "wide_chunks": 0}
+          "native": 0.0, "windows": 0, "raw_windows": 0, "data": 0,
+          "sites": 0, "wide_chunks": 0}
 _COUNT_SPAN = None  # (entered, left) _device_counts in the current window
 
 
@@ -387,18 +394,21 @@ def pileup_window(bams: List[AlignmentFile], rs: RefCache, conf: PileupConf,
     """process one [beg, end) window (1-based beg, exclusive end) — the body
     of process_func (pileup.c:675-853). Dispatches to the C++ window engine
     when `device` is None (raw BAM records when `bams` are raw sources, else
-    record objects), to the vectorized path with its count matrices made on
-    `device`, or to the per-datum path (verbose mode needs per-base
-    diagnostic records)."""
+    record objects); else, with the count matrices made on `device`, to the
+    C++ walk of pileup/walk.py when `bams` are raw sources (which
+    cli.main_pileup opens for the `native` and `device` engines only) or to
+    the vectorized path; or to the per-datum path (verbose mode needs
+    per-base diagnostic records)."""
     global _COUNT_SPAN
     if conf.comm.verbose:
         return _pileup_window_slow(bams, rs, conf, tid, chrm, beg, end,
                                    betasum_context, cnt_context)
     t0 = time.perf_counter()
+    from .native import RawBamBase
+    raw = bool(bams) and isinstance(bams[0], RawBamBase)
     if device is None:
-        from .native import (RawBamBase, pileup_window_native,
-                             pileup_window_native_raw)
-        if bams and isinstance(bams[0], RawBamBase):
+        from .native import pileup_window_native, pileup_window_native_raw
+        if raw:
             text = pileup_window_native_raw(bams, rs, conf, tid, chrm, beg,
                                             end, betasum_context, cnt_context)
         else:
@@ -409,8 +419,14 @@ def pileup_window(bams: List[AlignmentFile], rs: RefCache, conf: PileupConf,
         STAGES["sites"] += text.count("\n")
         return text
     _COUNT_SPAN = None
-    text = _pileup_window_fast(bams, rs, conf, tid, chrm, beg, end,
-                               betasum_context, cnt_context, device)
+    if raw:
+        from .walk import pileup_window_walk
+        text = pileup_window_walk(bams, rs, conf, tid, chrm, beg, end,
+                                  betasum_context, cnt_context, device)
+        STAGES["raw_windows"] += _COUNT_SPAN is not None
+    else:
+        text = _pileup_window_fast(bams, rs, conf, tid, chrm, beg, end,
+                                   betasum_context, cnt_context, device)
     t1 = time.perf_counter()
     entered, left = _COUNT_SPAN or (t1, t1)
     STAGES["decode"] += entered - t0
@@ -598,13 +614,14 @@ def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
     device once as 6 bytes a datum (int32 site * n_bams + sample, uint8
     base * 3 + meth, the pass flag), staged in one host buffer; cm, cb and
     the depth are summed there and come back as int64 numpy arrays
-    cm [P, n_bams, 3], cb [P, n_bams, 7] and dp [P, n_bams]. On a Mesh this
-    rank stages and counts its contiguous slice of the window's data on its
-    device, and the [window, N_WORDS] counts are summed over the ranks of
+    cm [P, n_bams, 3], cb [P, n_bams, 7] and dp [P, n_bams]. Both walks of
+    the `device` engine count here: _pileup_window_fast's arrays and those
+    the C++ walk of pileup/walk.py decodes. The window's count span holds
+    the copy, the count and the copy back. On a Mesh this rank stages and counts its
+    contiguous slice of the window's data on its device, and the [window, N_WORDS] counts are summed over the ranks of
     the dp axis (all_reduce); the ranks call it in lockstep, window by
     window, and the integer sums give the one-rank counts."""
     global _COUNT_SPAN
-    entered = time.perf_counter()
     n_window, window = len(p), P * n_bams
     mesh = device if isinstance(device, Mesh) else None
     if mesh is not None:
@@ -622,6 +639,7 @@ def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
         np.add(sites, sid, out=sites, casting="unsafe")
     np.take(_CODE_OF_STAT, stat, out=h[4 * n:5 * n])  # a stat past 255 raises
     h[5 * n:6 * n] = passm
+    entered = time.perf_counter()
     if dev is not host:
         dev[:6 * n].copy_(host[:6 * n], non_blocking=True)
     counts, n_wide = pileup_window_counts(
@@ -631,13 +649,13 @@ def _device_counts(p, sid, stat, passm, P: int, n_bams: int, device):
         counts = group_sum(counts, mesh.group("dp"))
     if counts.device.type != "cpu":
         counts = back[:window * N_WORDS].view(window, N_WORDS).copy_(counts)
+    _COUNT_SPAN = (entered, time.perf_counter())
     c = counts.numpy().reshape(P, n_bams, N_WORDS)
     cm = c[..., CM].astype(np.int64)
     cb = c[..., CB].astype(np.int64)
     dp_arr = c[..., DP].astype(np.int64)
     STAGES["data"] += n_window
     STAGES["wide_chunks"] += n_wide or 0
-    _COUNT_SPAN = (entered, time.perf_counter())
     return cm, cb, dp_arr
 
 

@@ -570,7 +570,9 @@ COPIES = {
     # the counts from the port's fused window count over reused staging
     # buffers, test_pileup_window_fast_differs_only_in_its_counts; a Mesh:
     # the same fused count on this rank's slice of the window's data, summed
-    # over the ranks), not by BISCUIT_TPU_PILEUP; no numpy bincount branch,
+    # over the ranks; a torch device with raw BAM sources: the C++ walk of
+    # pileup/walk.py around the same _device_counts), not by
+    # BISCUIT_TPU_PILEUP; no numpy bincount branch,
     # no _mesh_counts; the device engine's windows run in-process on a CUDA
     # device, and so do a mesh's, native windows in the fork pool on any
     # device (run_windows, the source's run_windows_pooled); stage timers

@@ -241,8 +241,8 @@ def test_reports_keep_the_keys_their_readers_use(data):
         rep["native.collect"]
     assert {k: type(v) for k, v in plp_engine.STAGES.items()} == {
         "open": float, "decode": float, "count": float, "emit": float,
-        "native": float, "windows": int, "data": int, "sites": int,
-        "wide_chunks": int}
+        "native": float, "windows": int, "raw_windows": int, "data": int,
+        "sites": int, "wide_chunks": int}
     plp_engine.STAGES["windows"] += 3
     plp_engine.STAGES["count"] += 0.5
     plp_engine.reset_stages()
