@@ -12,6 +12,12 @@ reference coordinate of its forward (reference-strand) form's first aligned
 base, whether it maps to the reverse strand, and the score of its true
 alignment at its origin under biscuit's bisulfite scoring (`true_score`),
 which the reference holds the aligner's primary alignment to.
+
+A configuration may give its reads a cell barcode and a UMI (`barcode_len`,
+`umi_len`, a pool of `n_barcodes` barcodes): each read's name then ends in
+`_<barcode>_<umi>`, as `align -9` splits it, drawn from the seed apart from
+the reads, so that the reads themselves are those of the same configuration
+without the keys.
 """
 from dataclasses import dataclass
 
@@ -57,7 +63,10 @@ class Chunk:
                                  # forward-form base, -1 inserted (pairs)
     fwd: np.ndarray = None       # [n, L] forward forms (pairs)
     fwd_quals: np.ndarray = None  # [n, L] their Phred+33 qualities
-    ot: np.ndarray = None        # OT molecule (pairs)
+    ot: np.ndarray = None        # OT molecule
+    lens: np.ndarray = None      # read lengths (rows of refpos, fwd and
+                                 # fwd_quals are padded past them)
+    tags: list = None            # (barcode, umi) of each read, or None
 
     @property
     def bases(self) -> int:
@@ -165,14 +174,19 @@ def cigar_of(ref: np.ndarray) -> str:
     return "".join(f"{n}{o}" for o, n in ops)
 
 
+def _reverse_rows(a: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Each row's first lens[i] entries reversed, in place of the row's
+    first lens[i] (the padding stays after them)."""
+    j = np.arange(a.shape[1])[None, :]
+    src = np.where(j < lens[:, None], lens[:, None] - 1 - j, j)
+    return np.take_along_axis(a, src, 1)
+
+
 def _revcomp_rows(a: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Each row's first lens[i] codes reverse-complemented, in place of
     the row's first lens[i] (the padding stays after them)."""
-    n, L = a.shape
-    j = np.arange(L)[None, :]
-    src = np.where(j < lens[:, None], lens[:, None] - 1 - j, j)
-    out = np.take_along_axis(a, src, 1)
-    live = j < lens[:, None]
+    out = _reverse_rows(a, lens)
+    live = np.arange(a.shape[1])[None, :] < lens[:, None]
     return np.where(live, COMP[out], out)
 
 
@@ -243,6 +257,7 @@ def wgbs_pairs(g: Genome, cfg: dict, rng, n_pairs: int, tag: str,
                              np.where(ot[:, None], q2[:, ::-1], q2)],
                             1).reshape(2 * n_pairs, L)
     ch.ot = np.repeat(ot, 2)
+    ch.lens = np.full(2 * n_pairs, L)
     return ch
 
 
@@ -281,7 +296,32 @@ def rrbs_reads(g: Genome, cfg: dict, frags, rng, n_reads: int,
     start, s = _true_alignment(f, ref, g, ot, lens)
     chrom = g.chrom_of(start)
     names = [f"{tag}.{i}" for i in range(n_reads)]
-    return _chunk(names, seq, q, lens, chrom, start - g.starts[chrom], ~ot, s)
+    ch = _chunk(names, seq, q, lens, chrom, start - g.starts[chrom], ~ot, s)
+    ch.refpos, ch.fwd, ch.ot, ch.lens = ref, f, ot, lens
+    ch.fwd_quals = np.where(ot[:, None], q, _reverse_rows(q, lens))
+    return ch
+
+
+def _tag_reads(chunk: Chunk, cfg: dict, seed: int, c: int) -> None:
+    """Give the chunk's reads the configuration's barcodes and UMIs, if it
+    has them: a barcode from the run's pool of n_barcodes and a UMI for
+    each read (mates share both), appended to its name."""
+    if not {"barcode_len", "umi_len", "n_barcodes"} & set(cfg):
+        return
+    rng = np.random.default_rng([seed, 17])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pool = acgt[rng.integers(0, 4, (cfg["n_barcodes"], cfg["barcode_len"]))]
+    rng = np.random.default_rng([seed, 17, c])
+    mols = len(chunk.names) // 2 if cfg["layout"] == "pe" else \
+        len(chunk.names)
+    bc = pool[rng.integers(0, len(pool), mols)]
+    umi = acgt[rng.integers(0, 4, (mols, cfg["umi_len"]))]
+    tags = [(b.tobytes().decode(), u.tobytes().decode())
+            for b, u in zip(bc, umi)]
+    if cfg["layout"] == "pe":
+        tags = [t for t in tags for _ in (0, 1)]
+    chunk.tags = tags
+    chunk.names = [f"{n}_{b}_{u}" for n, (b, u) in zip(chunk.names, tags)]
 
 
 def make_chunks(g: Genome, cfg: dict, seed: int, n_chunks: int,
@@ -297,16 +337,17 @@ def make_chunks(g: Genome, cfg: dict, seed: int, n_chunks: int,
         if cfg["layout"] == "pe":
             out.append(wgbs_pairs(g, cfg, rng, -(-chunk_bases // (2 * cfg[
                 "read_len"])), tag))
-            continue
-        mean = np.minimum(frags[1], cfg["read_len"]).mean()
-        ch = rrbs_reads(g, cfg, frags, rng, int(1.05 * chunk_bases / mean) + 64,
-                        tag)
-        total = np.cumsum([len(s) for s in ch.seqs])
-        k = int(np.searchsorted(total, chunk_bases)) + 1
-        k += k % 2
-        out.append(Chunk(ch.names[:k], ch.seqs[:k], ch.quals[:k],
-                         ch.chrom[:k], ch.pos[:k], ch.rev[:k],
-                         ch.true_score[:k]))
+        else:
+            mean = np.minimum(frags[1], cfg["read_len"]).mean()
+            ch = rrbs_reads(g, cfg, frags, rng,
+                            int(1.05 * chunk_bases / mean) + 64, tag)
+            total = np.cumsum([len(s) for s in ch.seqs])
+            k = int(np.searchsorted(total, chunk_bases)) + 1
+            k += k % 2
+            out.append(Chunk(ch.names[:k], ch.seqs[:k], ch.quals[:k],
+                             ch.chrom[:k], ch.pos[:k], ch.rev[:k],
+                             ch.true_score[:k]))
+        _tag_reads(out[-1], cfg, seed, c)
     return out
 
 
@@ -323,26 +364,17 @@ def write_fastq(chunk: Chunk, paths) -> None:
             f.close()
 
 
-def pileup_records(g: Genome, cfg: dict, region, depth: float, seed: int,
-                   tag: str):
-    """A sample's alignments over `region` (chromosome, start, end) at
-    `depth`, as biscuit would write them for directional WGBS pairs: each
-    read at its true alignment (leading and trailing insertions soft-
-    clipped), MAPQ 60, proper-pair flags, NM, AS (the true alignment's
-    score), YD and MC; sorted by position. Returns gen.bam.Record's."""
-    from .bam import Record
-    L = cfg["read_len"]
-    rng = np.random.default_rng([seed, 13])
-    n_pairs = int(depth * (region[2] - region[1]) / (2 * L))
-    ch = wgbs_pairs(g, cfg, rng, n_pairs, tag, region)
-    c0 = g.starts[region[0]]
+def _true_records(g: Genome, ch: Chunk, c0: int):
+    """(CIGAR, 0-based position on the chromosome starting at c0, NM) of
+    each read of `ch` at its true alignment, leading and trailing
+    insertions soft-clipped."""
     cig, pos = [], []
-    for i in range(2 * n_pairs):
-        r = ch.refpos[i]
-        if r[0] >= 0 and r[-1] - r[0] == L - 1:
-            cig.append([("M", L)])
+    for i, n in enumerate(ch.lens):
+        r = ch.refpos[i, :n]
+        if r[0] >= 0 and r[-1] - r[0] == n - 1:
+            cig.append([("M", int(n))])
         else:
-            ops = [(o, int(n)) for n, o in
+            ops = [(o, int(k)) for k, o in
                    _split_cigar(cigar_of(r))]
             if ops[0][0] == "I":
                 ops[0] = ("S", ops[0][1])
@@ -350,11 +382,37 @@ def pileup_records(g: Genome, cfg: dict, region, depth: float, seed: int,
                 ops[-1] = ("S", ops[-1][1])
             cig.append(ops)
         pos.append(int(r[r >= 0][0]) - c0)
-    live = ch.refpos >= 0
+    in_read = np.arange(ch.refpos.shape[1])[None, :] < ch.lens[:, None]
+    live = (ch.refpos >= 0) & in_read
     rb = g.codes[np.maximum(ch.refpos, 0)]
     conv = np.where(ch.ot[:, None], (ch.fwd == 3) & (rb == 1),
                     (ch.fwd == 0) & (rb == 2))
-    nm = ((ch.fwd != rb) & live & ~conv).sum(1) + (~live).sum(1)
+    nm = ((ch.fwd != rb) & live & ~conv).sum(1) + (~live & in_read).sum(1)
+    nm = [int(k) + sum(m for o, m in c if o == "D") for k, c in zip(nm, cig)]
+    return cig, pos, nm
+
+
+def pileup_records(g: Genome, cfg: dict, region, depth: float, seed: int,
+                   tag: str):
+    """A sample's alignments over `region` (chromosome, start, end) at
+    `depth`, as biscuit would write them for the configuration's library,
+    each read at its true alignment (leading and trailing insertions soft-
+    clipped), MAPQ 60, NM, AS (the true alignment's score) and YD, sorted
+    by position. Returns gen.bam.Record's.
+
+    WGBS (`rrbs` 0): directional pairs from fragments that overlap the
+    region, at `depth` over it, with proper-pair flags, mate fields and MC.
+    RRBS (`rrbs` 1): single-end reads drawn as rrbs_reads draws them from
+    the MspI fragments that lie wholly inside the region, as many as give
+    `depth` over the fragments' bases; flags 0 or 16, no mate."""
+    rng = np.random.default_rng([seed, 13])
+    if cfg["rrbs"]:
+        return _rrbs_records(g, cfg, region, depth, rng, tag)
+    from .bam import Record
+    L = cfg["read_len"]
+    n_pairs = int(depth * (region[2] - region[1]) / (2 * L))
+    ch = wgbs_pairs(g, cfg, rng, n_pairs, tag, region)
+    cig, pos, nm = _true_records(g, ch, g.starts[region[0]])
     recs = []
     for i in range(2 * n_pairs):
         j = i ^ 1
@@ -364,13 +422,39 @@ def pileup_records(g: Genome, cfg: dict, region, depth: float, seed: int,
         lo = min(pos[i], pos[j])
         hi = max(pos[k] + sum(n for o, n in cig[k] if o in "MD")
                  for k in (i, j))
-        gaps = sum(n for o, n in cig[i] if o == "D")
         recs.append(Record(
             ch.names[i], flag, region[0], pos[i], 60, cig[i], region[0],
             pos[j], (hi - lo) * (-1 if rev else 1), ch.fwd[i],
             ch.fwd_quals[i].tobytes(),
-            [("NM", "i", int(nm[i]) + gaps), ("AS", "i", int(ch.true_score[i])),
+            [("NM", "i", nm[i]), ("AS", "i", int(ch.true_score[i])),
              ("MC", "Z", "".join(f"{n}{o}" for o, n in cig[j])),
+             ("YD", "A", "f" if ch.ot[i] else "r")]))
+    recs.sort(key=lambda r: r.pos)
+    return recs
+
+
+def _rrbs_records(g: Genome, cfg: dict, region, depth: float, rng,
+                  tag: str):
+    from .bam import Record
+    fa, fl = mspi_fragments(g, cfg)
+    c0 = g.starts[region[0]]
+    hi = c0 + min(region[2], g.starts[region[0] + 1] - c0)
+    inside = (fa >= c0 + region[1]) & (fa + fl <= hi)
+    fa, fl = fa[inside], fl[inside]
+    if not len(fa):
+        raise ValueError(f"no MspI fragment of {cfg['frag_min']}-"
+                         f"{cfg['frag_max']} bp lies inside {region}")
+    n = int(depth * fl.sum() / np.minimum(fl, cfg["read_len"]).mean())
+    ch = rrbs_reads(g, cfg, (fa, fl), rng, n, tag)
+    cig, pos, nm = _true_records(g, ch, c0)
+    recs = []
+    for i in range(n):
+        k = ch.lens[i]
+        recs.append(Record(
+            ch.names[i], 0x10 if ch.rev[i] else 0, region[0], pos[i], 60,
+            cig[i], -1, -1, 0, ch.fwd[i, :k], ch.fwd_quals[i, :k].tobytes(),
+            [("NM", "i", nm[i]),
+             ("AS", "i", int(ch.true_score[i])),
              ("YD", "A", "f" if ch.ot[i] else "r")]))
     recs.sort(key=lambda r: r.pos)
     return recs

@@ -71,8 +71,29 @@ def _scratch():
     return tempfile.mkdtemp(prefix="biscuit-bench-")
 
 
-# align's options that a control may change (limits/<cell>.json "control")
-CONTROL_OPTIONS = {"-k": "min_seed_len", "-w": "w"}
+# the `align` options that a configuration (its "align_options") or a
+# control (limits/<cell>.json "control") may give: each to the MemOpt field
+# that cli.main_align sets for it, and whether it takes a value (else the
+# field is set to 1)
+ALIGN_OPTIONS = {"-b": ("parent", True), "-k": ("min_seed_len", True),
+                 "-w": ("w", True), "-9": ("has_bc", False)}
+
+
+def align_options(args) -> list:
+    """[(MemOpt field, value)] of a list of align options; an option that
+    is not in ALIGN_OPTIONS, or that lacks its value, is refused."""
+    out, args = [], list(args)
+    while args:
+        o = args.pop(0)
+        if o not in ALIGN_OPTIONS:
+            raise ValueError(f"align option {o!r} is not one the benchmark "
+                             f"can set (loops.ALIGN_OPTIONS: "
+                             f"{', '.join(ALIGN_OPTIONS)})")
+        field, takes = ALIGN_OPTIONS[o]
+        if takes and not args:
+            raise ValueError(f"align option {o!r} needs a value")
+        out.append((field, int(args.pop(0)) if takes else 1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +134,9 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
     opt = MemOpt()
     opt.flag |= MEM_F_NO_MULTI
     opt.n_threads = threads
-    for o, v in zip((control or [])[::2], (control or [])[1::2]):
-        setattr(opt, CONTROL_OPTIONS[o], int(v))
+    for field, v in align_options(cfg.get("align_options", [])
+                                  + (control or [])):
+        setattr(opt, field, v)
     opt.__post_init__()
     if pe:
         opt.flag |= MEM_F_PE
@@ -127,7 +149,8 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
 
     def batch(k):
         its = [fastq_iter(p) for p in files[k % len(files)]]
-        return read_batch(its[0], its[1] if pe else None, cfg["chunk_bases"])
+        return read_batch(its[0], its[1] if pe else None, cfg["chunk_bases"],
+                          bool(opt.has_bc))
 
     def align_chunk(seqs):
         for s in seqs:

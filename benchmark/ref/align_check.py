@@ -13,7 +13,9 @@ program's SAM text is what is judged. Three numbers:
   or that leaves its chromosome; NM, MD, ZC or ZR other than the reference
   recomputes from the CIGAR, the read and the genome under the record's
   bisulfite strand (YD); for pairs, mate fields (RNEXT, PNEXT, TLEN, MC,
-  MQ, flags 0x8 and 0x20) other than the mate's primary record gives.
+  MQ, flags 0x8 and 0x20) other than the mate's primary record gives;
+  where the reads carry a barcode and a UMI in their names (`align -9`),
+  a CB:Z or RX:Z other than the read's.
 - `missed_per_1e5`: of the other sampled reads whose true alignment at
   their origin scores at least biscuit's output threshold, those whose
   primary alignment falls short, per 10^5: unmapped, its AS below the true
@@ -239,6 +241,10 @@ def check_window(chunks, outputs, genome, starts, names, sample_ids,
             for f in recs[i]:
                 bad = check_record(f, ch.seqs[i], ch.quals[i], chroms,
                                    genome, starts)
+                if not bad and ch.tags is not None:
+                    t = _tags(f)
+                    if (t.get("CB"), t.get("RX")) != ch.tags[i]:
+                        bad = "CB or RX"
                 if bad:
                     break
             if not bad and pe and prim[i] is not None and \

@@ -50,6 +50,8 @@ def cell_files(name: str, bench=None, sizes=None):
     mix = load_json(BENCH_DIR, "traffic", cell["traffic"] + ".json")
     for d in (cfg, mix):
         d.update({k: v for k, v in (sizes or {}).items() if k in d})
+    from .loops import align_options
+    align_options(cfg.get("align_options", []))  # refused here, at load
     return bench, cell, cfg, mix
 
 

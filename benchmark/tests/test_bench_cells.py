@@ -10,13 +10,18 @@ from benchmark import run
 from benchmark.gen import bam as bmod
 from benchmark.gen import genome as gmod
 from benchmark.gen import reads as rmod
-from benchmark.tests.conftest import SIZES
+from benchmark.tests.conftest import SIZES, bench
 
 ALIGN = ["wgbs-pe150.align", "rrbs-se100.align"]
+# each pileup cell's region at the tests' sizes: the RRBS sample lies on the
+# MspI fragments, about 1% of a region, so it takes 350 kbp (4 windows, some
+# 35 fragments) for as many sites as the WGBS pairs give over 20 kbp
+PILEUP = {"wgbs-pe150.pileup": {}, "rrbs-se100.pileup":
+          {"pileup_region_bp": 350_000}}
 
 
 def _cfg(cell):
-    return run.cell_files(cell, sizes=SIZES)
+    return run.cell_files(cell, bench(), SIZES)
 
 
 def _body(sam: str):
@@ -43,14 +48,15 @@ def test_bench_align_loop_writes_the_cli_sam(cell, cpu, tmp_path, capsys):
     assert _body(capsys.readouterr().out) == _body(res["outputs"]["warm"])
 
 
-def test_bench_pileup_loop_writes_the_cli_vcf(cpu, tmp_path, capsys):
+@pytest.mark.parametrize("cell", sorted(PILEUP))
+def test_bench_pileup_loop_writes_the_cli_vcf(cell, cpu, tmp_path, capsys):
     """The window's pileup calls write the VCF of `pileup` on the same BAM,
     and the reference agrees with it record for record."""
-    cell = "wgbs-pe150.pileup"
-    res = run.run_cell(cell, 22, 0.1, False, cpu, sizes=SIZES)
+    sizes = dict(SIZES, **PILEUP[cell])
+    res = run.run_cell(cell, 22, 0.1, False, cpu, bench(), sizes=sizes)
     assert res["correct"], res["checks"]
     assert res["numbers"] == {"vcf_records_differ": 0, "tsv_lines_differ": 0}
-    _b, _c, cfg, mix = _cfg(cell)
+    _b, _c, cfg, mix = run.cell_files(cell, bench(), sizes)
     g, _ = gmod.load_genome(cfg)
     k, vcf, _tsv = res["outputs"][0]
     region = (mix["region_start"], mix["region_start"]
@@ -66,6 +72,9 @@ def test_bench_pileup_loop_writes_the_cli_vcf(cpu, tmp_path, capsys):
     with open(out) as f:
         assert [ln for ln in f if not ln.startswith("#")] == vcf
     assert len(vcf) > 1000
+    if cfg["rrbs"]:  # single-end reads, each wholly on one MspI fragment
+        assert all(r.flag in (0, 16) and r.mtid == -1 and r.tlen == 0
+                   and "MC" not in [t[0] for t in r.tags] for r in recs)
 
 
 def test_bench_wide_index_sam_equals_narrow(cpu, tmp_path, monkeypatch,
@@ -165,13 +174,15 @@ def test_bench_align_fault_is_refused(cell, kind, cpu, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", FAULTS)
-def test_bench_pileup_fault_is_refused(kind, cpu, monkeypatch):
+@pytest.mark.parametrize("cell", sorted(PILEUP))
+def test_bench_pileup_fault_is_refused(cell, kind, cpu, monkeypatch):
     mod, name, faulty = _pileup_fault(kind)
     monkeypatch.setattr(mod, name, faulty)
     # -@ 1: on the CPU, as on a card at any -@, the windows run in order in
     # this process (a fork pool would not carry the fault's state)
-    res = run.run_cell("wgbs-pe150.pileup", 25, 0.1, False, cpu,
-                       sizes=dict(SIZES, pileup_region_bp=250_000, threads=1))
+    sizes = dict(SIZES, pileup_region_bp=250_000, threads=1)
+    res = run.run_cell(cell, 25, 0.1, False, cpu, bench(),
+                       sizes=dict(sizes, **PILEUP[cell]))
     assert not res["correct"], res["checks"]
 
 
@@ -185,6 +196,7 @@ def test_bench_pileup_fault_is_refused(kind, cpu, monkeypatch):
     ("rrbs-se100.align", {"chunk_bases": 600_000, "pool_chunks": 2,
                           "check_reads": 100_000}),
     ("wgbs-pe150.pileup", {}),
+    ("rrbs-se100.pileup", PILEUP["rrbs-se100.pileup"]),
 ])
 def test_bench_control_is_refused(cell, sizes, cpu):
     """Each cell's control (limits/<cell>.json): the program with a narrow
@@ -193,6 +205,122 @@ def test_bench_control_is_refused(cell, sizes, cpu):
     the same run without it comes out correct."""
     from benchmark.loops import control_of
     _b, cell_d, _c, _m = _cfg(cell)
-    got = run.run_cell(cell, 26, 0.1, False, cpu,
+    got = run.run_cell(cell, 26, 0.1, False, cpu, bench(),
                        control=control_of(cell_d), sizes=dict(SIZES, **sizes))
     assert not got["correct"], got["checks"]
+
+
+# ---------------------------------------------------------------------------
+# a configuration's own align options and barcoded read names
+# ---------------------------------------------------------------------------
+
+def _barcoded(cell):
+    """The cell's files with a configuration that asks for `-9` and gives
+    its reads an 8 bp barcode from a pool of 24 and a 10 bp UMI (a test's
+    configuration, not one of configs/), at chunks of 20,000 bases."""
+    _b, cell_d, cfg, mix = _cfg(cell)
+    cfg = dict(cfg, align_options=["-9"], barcode_len=8, umi_len=10,
+               n_barcodes=24, chunk_bases=20_000)
+    return cell_d, cfg, mix
+
+
+@pytest.mark.parametrize("cell", ALIGN)
+def test_bench_barcoded_align_writes_the_cli_sam(cell, cpu, tmp_path,
+                                                 capsys):
+    """A configuration with align_options ["-9"] and barcoded names runs
+    through the harness's align loop, its window passes the check, and its
+    warm chunk's SAM is `align -9`'s on the same FASTQ, CB and RX
+    included; an RX altered in the window's SAM is inconsistent."""
+    from benchmark import loops
+    from benchmark.ref.align_check import check_window
+    cell_d, cfg, mix = _barcoded(cell)
+    res = loops.align(cell_d, cfg, mix, 27, 0.1, False, cpu, run.T_PROC,
+                      None)
+    assert res["correct"], res["checks"]
+    g, _ = gmod.load_genome(cfg)
+    chunks = rmod.make_chunks(g, cfg, 27, mix["pool_chunks"],
+                              cfg["chunk_bases"])
+    paths = [str(tmp_path / f"r{m}.fq") for m in
+             ((1, 2) if cfg["layout"] == "pe" else (1,))]
+    rmod.write_fastq(chunks[0], paths)
+    from biscuit_tpu_torch import cli
+    capsys.readouterr()
+    assert cli.main(["align", "-9", "-@", str(mix["threads"]), g.fasta,
+                     *paths]) == 0
+    want = _body(capsys.readouterr().out)
+    assert want == _body(res["outputs"]["warm"])
+    bc, umi = chunks[0].tags[0]
+    assert chunks[0].names[0].endswith(f"_{bc}_{umi}")
+    assert f"\tCB:Z:{bc}" in want[0] and f"\tRX:Z:{umi}" in want[0]
+
+    pe = cfg["layout"] == "pe"
+    k, text = res["outputs"]["window"][0]
+    sel = [np.arange(len(chunks[k].names))]
+    good = check_window(chunks, [(k, text)], g.codes, g.starts, g.names,
+                        sel, pe)[0]
+    assert good["inconsistent"] == 0
+    lines = text.splitlines(True)
+    f = lines[0].split("\t")
+    j = next(i for i, t in enumerate(f) if t.startswith("RX:Z:"))
+    f[j] = "RX:Z:" + f[j][5:][::-1].translate(str.maketrans("ACGT", "TGCA"))
+    assert f[j] != lines[0].split("\t")[j]
+    bad = check_window(chunks, [(k, "\t".join(f) + "".join(lines[1:]))],
+                       g.codes, g.starts, g.names, sel, pe)[0]
+    assert bad["inconsistent"] == 1
+
+
+def test_bench_unknown_align_option_is_refused_at_load(monkeypatch):
+    """An align option that the harness's table lacks stops the run when
+    the cell's files are read, naming the option."""
+    real = run.load_json
+
+    def with_option(*parts):
+        d = real(*parts)
+        if parts[-1] == "rrbs-se100.json":
+            d["align_options"] = ["-9", "-x", "pacbio"]
+        return d
+    monkeypatch.setattr(run, "load_json", with_option)
+    for cell in ("rrbs-se100.align", "rrbs-se100.pileup"):
+        with pytest.raises(ValueError, match="'-x'"):
+            run.cell_files(cell, bench())
+
+
+# each option of loops.ALIGN_OPTIONS as a configuration would state it, at
+# a value other than its default (-b's default is 0)
+CLI_OPTIONS = {"b1": ["-b", "1"], "b3": ["-b", "3"], "bc": ["-9"],
+               "k25_w1": ["-k", "25", "-w", "1"]}
+
+
+@pytest.mark.parametrize("opts", sorted(CLI_OPTIONS))
+@pytest.mark.parametrize("cell", ALIGN)
+def test_bench_align_options_build_the_cli_memopt(cell, opts, cpu, tmp_path,
+                                                  monkeypatch):
+    """A configuration's align_options give the loop the MemOpt that
+    `align` builds from the same options (and -M, which the loop sets),
+    field for field, as each hands it to the hybrid engine."""
+    from benchmark import loops
+    from benchmark.tests.test_bench_inputs_pinned import (OPTIONS, _Built,
+                                                          _opt_digest)
+    from biscuit_tpu_torch import cli
+    from biscuit_tpu_torch.align import device_engine as de
+    got = []
+
+    def capture(opt, *a, **kw):
+        got.append(opt)
+        raise _Built
+
+    monkeypatch.setattr(de, "process_seqs_hybrid", capture)
+    cell_d, cfg, mix = _barcoded(cell)
+    cfg["align_options"] = CLI_OPTIONS[opts]
+    with pytest.raises(_Built):
+        loops.align(cell_d, cfg, mix, 28, 0.1, False, cpu, run.T_PROC, None)
+    g, _ = gmod.load_genome(cfg)
+    chunk = rmod.make_chunks(g, cfg, 28, 1, cfg["chunk_bases"])[0]
+    paths = [str(tmp_path / f"r{m}.fq") for m in
+             ((1, 2) if cfg["layout"] == "pe" else (1,))]
+    rmod.write_fastq(chunk, paths)
+    with pytest.raises(_Built):
+        cli.main(["align", "-M", *CLI_OPTIONS[opts], "-@",
+                  str(got[0].n_threads), g.fasta, *paths])
+    assert _opt_digest(got[0]) == _opt_digest(got[1])
+    assert _opt_digest(got[0]) != OPTIONS[(cell, False)]  # the options act

@@ -13,7 +13,7 @@ import pytest
 from benchmark import run, trace
 from benchmark.gen import genome as gmod
 from benchmark.gen import reads as rmod
-from benchmark.tests.conftest import SIZES
+from benchmark.tests.conftest import SIZES, bench
 
 BENCH = run.load_json(run.REPO, "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -24,18 +24,22 @@ KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
         "per_layer": {"name", "unit", "better", "source", "layer", "moves"}}
 
 
-def test_bench_names_resolve_to_files_and_keep_the_rules():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
-                          "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["benchmark"]
+@pytest.mark.parametrize("with_held", [False, True])
+def test_bench_names_resolve_to_files_and_keep_the_rules(with_held):
+    """BENCHMARK.json, and with it the entries held out of it
+    (held/pileup.json), keep the contract's keys, names and files."""
+    bj = bench() if with_held else BENCH
+    assert set(bj) == {"command", "paths", "run_seconds", "configs",
+                       "workloads", "end_to_end", "per_layer"}
+    assert bj["paths"] == ["benchmark"]
     for kind, keys in KEYS.items():
-        for e in BENCH[kind]:
+        for e in bj[kind]:
             assert set(e) - {"workloads"} == keys, e
             assert NAME.match(e["name"]), e["name"]
             if "unit" in e:
                 assert UNIT.match(e["unit"]), e["unit"]
                 assert e["better"] in ("lower", "higher")
-    for c in BENCH["configs"]:
+    for c in bj["configs"]:
         assert c["file"] == f"benchmark/configs/{c['name']}.json"
         cfg = run.load_json(run.REPO, c["file"])
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
@@ -43,7 +47,7 @@ def test_bench_names_resolve_to_files_and_keep_the_rules():
         assert all(NAME.match(k) and k in cfg for k in c["reduced"])
         for text in (c["source"], c["why"]):
             assert 1 <= len(text) <= 200 and not re.search(r"[\t\n]", text)
-    for w in BENCH["workloads"]:
+    for w in bj["workloads"]:
         assert w["name"] == f"{w['config']}.{w['traffic']}"
         for part in ("configs/" + w["config"], "traffic/" + w["traffic"],
                      "limits/" + w["name"]):
@@ -51,12 +55,12 @@ def test_bench_names_resolve_to_files_and_keep_the_rules():
         assert w["chips"] == 1 and len(w["why"]) <= 200
         limits = run.load_json(run.BENCH_DIR, "limits", w["name"] + ".json")
         assert set(limits) == {"limits", "control"}
-    reported = {w["name"]: {m["name"] for m in BENCH["end_to_end"]
+    reported = {w["name"]: {m["name"] for m in bj["end_to_end"]
                             if w["name"] in m.get("workloads", [w["name"]])}
-                for w in BENCH["workloads"]}
-    for m in BENCH["end_to_end"]:
+                for w in bj["workloads"]}
+    for m in bj["end_to_end"]:
         assert m["source"] == "host_clock" and 0.01 <= m["bound"] <= 0.25
-    for m in BENCH["per_layer"]:
+    for m in bj["per_layer"]:
         assert os.path.exists(os.path.join(run.BENCH_DIR, "metrics",
                                            m["name"] + ".py"))
         for w in m["workloads"]:
@@ -83,7 +87,8 @@ def test_bench_generators_repeat_for_a_seed_and_differ_across_seeds():
             assert np.array_equal(x.pos, y.pos)
         assert not all(np.array_equal(s, t) for s, t in
                        zip(one[0].seqs, two[0].seqs))
-    _b, _c, c, m = run.cell_files("wgbs-pe150.pileup", sizes=SIZES)
+    _b, _c, c, m = run.cell_files("wgbs-pe150.pileup", bench(),
+                                   sizes=SIZES)
     reg = (0, m["region_start"], m["region_start"] + c["pileup_region_bp"])
     p1, p2, p3 = (rmod.pileup_records(g, c, reg, 10, s, "t")
                   for s in (5, 5, 6))
@@ -101,9 +106,13 @@ import json, os, sys, torch
 os.environ["BISCUIT_TPU_TORCH_DEVICE"] = "cpu"
 from benchmark import run, control, loops
 sizes = {json.dumps(SIZES)}
+from benchmark.tests.conftest import bench
 for cell in ("wgbs-pe150.align", "wgbs-pe150.pileup"):
-    run.run_cell(cell, 31, 0.1, True, torch.device("cpu"), sizes=sizes)
-for m in run.load_json(run.REPO, "BENCHMARK.json")["per_layer"]:
+    run.run_cell(cell, 31, 0.1, True, torch.device("cpu"), bench(),
+                 sizes=sizes)
+run.run_cell("rrbs-se100.pileup", 31, 0.1, True, torch.device("cpu"),
+             bench(), sizes=dict(sizes, pileup_region_bp=350_000))
+for m in bench()["per_layer"]:
     run.metric_reader(m["name"])
 print(json.dumps(run.forbidden_modules()))
 print(json.dumps(sorted(m for m in sys.modules
@@ -160,6 +169,23 @@ def test_bench_trace_summary_and_readers():
     ctx["trace"] = None
     assert run.metric_reader("k3_roofline")(ctx) is None
     assert run.metric_reader("device.idle_share.align")(ctx) is None
+
+
+def test_bench_pileup_stage_readers():
+    """The pileup stages' shares of the window and the cost of a window
+    with data; nothing where no window held data."""
+    ctx = {"wall": 10.0, "stages": {"open": 1.0, "decode": 2.0,
+                                    "count": 0.5, "emit": 1.5, "windows": 40,
+                                    "raw_windows": 40}}
+    got = {n: run.metric_reader(n)(ctx) for n in (
+        "pileup.open_share", "pileup.decode_share", "pileup.emit_share",
+        "pileup.window_ms", "pileup.count_share", "pileup.host_share")}
+    assert got == pytest.approx({
+        "pileup.open_share": 10.0, "pileup.decode_share": 20.0,
+        "pileup.emit_share": 15.0, "pileup.window_ms": 100.0,
+        "pileup.count_share": 5.0, "pileup.host_share": 45.0})
+    ctx["stages"]["windows"] = 0
+    assert run.metric_reader("pileup.window_ms")(ctx) is None
 
 
 @pytest.mark.chip
