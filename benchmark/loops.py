@@ -7,9 +7,12 @@ Each loop makes the run's inputs from the seed (timed apart), sets the
 program up (index load, engines, one warm chunk or call: `setup_s`), measures
 whole chunks or calls until the first that ends after `seconds`, reads the
 card's peak memory, frees the program's state and holds what the window
-wrote to the plain reference under `ref/`.
+wrote to the plain reference under `ref/`. Given `time_limits` (the command
+gives WARM_LIMIT_S and CHUNK_LIMIT_S), a warm chunk or call, or one of the
+window, that runs past its limit stops the process (time_limit).
 """
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -31,6 +34,43 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+# The time limits of a run of the command (run.main alone arms them; the
+# tests' calls of run.run_cell give none). WARM_LIMIT_S covers the warm chunk
+# or call, which in a fresh checkout also builds the kernels and the native
+# libraries; CHUNK_LIMIT_S each chunk or call of the window, an align chunk
+# from asking the reader's queue for its batch to the card's sync, so that a
+# stalled reader is caught too. Input generation, the index build and the
+# reference check after the window have none. CHUNK_LIMIT_S: the longest
+# window chunk recorded is 5.11 s (a traced wgbs-pe150.align run on an H100
+# host with 8 cores), and a WGBS chunk of 66,668 reads on the device-jax
+# path needs 70 s even at that path's best rate recorded, 957 reads/s on a
+# 5 Mbp genome. WARM_LIMIT_S: at most 300 s, and at least three times the
+# longest warm chunk that runs cold, with nothing built (PERF.md section 2
+# gives what has been measured of it).
+WARM_LIMIT_S = 240
+CHUNK_LIMIT_S = 60
+
+
+@contextlib.contextmanager
+def time_limit(limit_s, name: str, t_proc: float):
+    """Stop the process if the block runs past `limit_s` seconds (none where
+    `limit_s` is None). The block's `name` (the cell and its chunk or call)
+    and the limit go to stderr as it starts; the stop prints every thread's
+    stack and exits 1, with no result line. The stop is faulthandler's
+    watchdog, a C thread that needs no GIL, so it also ends a C call that
+    holds the GIL."""
+    if limit_s is None:
+        yield
+        return
+    log(f"[limit] {name}: {limit_s} s from {time.perf_counter() - t_proc:.1f}"
+        f" s into the run")
+    faulthandler.dump_traceback_later(limit_s, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
 
 
 def _limits_file(cell: dict) -> dict:
@@ -100,7 +140,9 @@ def align_options(args) -> list:
 # align
 # ---------------------------------------------------------------------------
 
-def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
+def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control,
+          time_limits=None):
+    warm_limit, chunk_limit = time_limits or (None, None)
     t_in = time.perf_counter()
     g, t_index = gmod.load_genome(cfg, log)
     t_gen = time.perf_counter() - t_in - t_index
@@ -160,10 +202,13 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
         n_done[0] += len(seqs)
 
     # one warm chunk: every kernel and shape of the window built and run
-    warm = batch(0)
-    align_chunk(warm)
-    warm = "".join(s.sam for s in warm if s.sam)
-    sync(device)
+    with time_limit(warm_limit, f"{cell['name']} warm chunk", t_proc):
+        tw = time.perf_counter()
+        warm = batch(0)
+        align_chunk(warm)
+        warm = "".join(s.sam for s in warm if s.sam)
+        sync(device)
+        t_warm = time.perf_counter() - tw
     de.reset_stages()
     if device.type == "cuda":
         import torch
@@ -201,18 +246,21 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
         rt.start()
         with tmod.span("benchmark.window"):
             while True:
-                item = bq.get()
-                if isinstance(item, BaseException):
-                    raise item
-                k, seqs = item
-                tc = time.perf_counter()
-                with tmod.span("benchmark.align_chunk"):
-                    align_chunk(seqs)
-                with tmod.span("benchmark.write_sam"):
-                    tw = time.perf_counter()
-                    outputs.append((k, "".join(s.sam for s in seqs if s.sam)))
-                    spans["write"] += time.perf_counter() - tw
-                sync(device)
+                with time_limit(chunk_limit, f"{cell['name']} window chunk "
+                                f"{len(chunk_s)}", t_proc):
+                    item = bq.get()
+                    if isinstance(item, BaseException):
+                        raise item
+                    k, seqs = item
+                    tc = time.perf_counter()
+                    with tmod.span("benchmark.align_chunk"):
+                        align_chunk(seqs)
+                    with tmod.span("benchmark.write_sam"):
+                        tw = time.perf_counter()
+                        outputs.append((k, "".join(s.sam for s in seqs
+                                                   if s.sam)))
+                        spans["write"] += time.perf_counter() - tw
+                    sync(device)
                 t1 = time.perf_counter()
                 chunk_s.append(t1 - tc)
                 if t1 - t0 >= seconds:
@@ -246,7 +294,8 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
         f"{json.dumps(notes)}")
     correct, checks = judge(numbers, limits(cell))
     log(f"[benchmark] window {wall:.3f} s, {len(outputs)} chunks, {n_reads} "
-        f"reads; setup {t_setup:.3f} s; chunks (s): "
+        f"reads; setup {t_setup:.3f} s, its warm chunk {t_warm:.3f} s; "
+        f"chunks (s): "
         f"{' '.join(f'{c:.3f}' for c in chunk_s)}")
     ctx = {"kind": "align", "wall": wall, "spans": spans, "chunk_s": chunk_s,
            "stages": stages, "lane_bases": lane_bases,
@@ -270,7 +319,9 @@ def align(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
 # pileup
 # ---------------------------------------------------------------------------
 
-def pileup(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
+def pileup(cell, cfg, mix, seed, seconds, trace, device, t_proc, control,
+           time_limits=None):
+    warm_limit, call_limit = time_limits or (None, None)
     from .gen import bam as bmod
     from .ref import pileup_ref
     t_in = time.perf_counter()
@@ -305,8 +356,11 @@ def pileup(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
         if rc != 0:
             raise RuntimeError(f"pileup exited {rc}")
 
-    call(0, os.path.join(tmp, "warm.vcf"))  # every kernel built and run
-    sync(device)
+    with time_limit(warm_limit, f"{cell['name']} warm call", t_proc):
+        tw = time.perf_counter()
+        call(0, os.path.join(tmp, "warm.vcf"))  # every kernel built and run
+        sync(device)
+        t_warm = time.perf_counter() - tw
     pe.reset_stages()
     if device.type == "cuda":
         import torch
@@ -320,10 +374,12 @@ def pileup(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
             k = 1
             while True:
                 out = os.path.join(tmp, f"call{k}.vcf")
-                tc = time.perf_counter()
-                with tmod.span("benchmark.pileup_call"):
-                    call(k, out)
-                sync(device)
+                with time_limit(call_limit, f"{cell['name']} window call "
+                                f"{len(call_s)}", t_proc):
+                    tc = time.perf_counter()
+                    with tmod.span("benchmark.pileup_call"):
+                        call(k, out)
+                    sync(device)
                 t1 = time.perf_counter()
                 call_s.append(t1 - tc)
                 outputs.append((k % len(samples), out))
@@ -370,7 +426,8 @@ def pileup(cell, cfg, mix, seed, seconds, trace, device, t_proc, control):
         f"{len(want)} samples")
     correct, checks = judge(numbers, limits(cell))
     log(f"[benchmark] window {wall:.3f} s, {len(outputs)} calls, {n_sites} "
-        f"sites; setup {t_setup:.3f} s; calls (s): "
+        f"sites; setup {t_setup:.3f} s, its warm call {t_warm:.3f} s; "
+        f"calls (s): "
         f"{' '.join(f'{c:.3f}' for c in call_s)}")
     ctx = {"kind": "pileup", "wall": wall, "call_s": call_s, "stages": stages,
            "positions": len(outputs) * (min(region[1], lengths[tid])

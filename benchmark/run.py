@@ -9,6 +9,9 @@ config (configs/<config>.json) and a traffic mix (traffic/<mix>.json), and
 each per-layer metric is read by metrics/<name>.py. The last line of
 standard output is the result as one JSON object; everything else goes to
 standard error. A run on a machine without the card exits 2 and prints no
+result; one whose warm chunk or call, or a chunk or call of its window,
+runs past its time limit (loops.WARM_LIMIT_S, loops.CHUNK_LIMIT_S) stops at
+once with every thread's stack on standard error, exits 1 and prints no
 result.
 """
 import time
@@ -109,16 +112,18 @@ def per_layer(bench, cell, ctx) -> dict:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
-             bench=None, control=None, sizes=None) -> dict:
+             bench=None, control=None, sizes=None, time_limits=None) -> dict:
     """Set up, measure and check one run of cell `name` on `device` (a CUDA
     device in a benchmark run; the CPU in the tests, which drive the plain
     versions of the kernels). Returns the result's fields and the numbers
     compared; `control` runs the cell's control in the program's place
-    (limits/<cell>.json, loops.control_of)."""
+    (limits/<cell>.json, loops.control_of); `time_limits`, (warm, chunk)
+    seconds, stops the process past either (loops.time_limit; none where
+    it is None)."""
     from . import loops
     bench, cell, cfg, mix = cell_files(name, bench, sizes)
     res = loops.LOOPS[mix["kind"]](cell, cfg, mix, seed, seconds, trace,
-                                   device, T_PROC, control)
+                                   device, T_PROC, control, time_limits)
     ctx = res.pop("ctx")
     if trace:
         res["metrics"] = per_layer(bench, cell, ctx)
@@ -144,8 +149,10 @@ def main(argv=None) -> int:
     dev = card()
     log(f"[benchmark] {args.workload} seed {args.seed} on {dev['kind']}, "
         f"power limit {dev['power_limit']}")
+    from .loops import CHUNK_LIMIT_S, WARM_LIMIT_S
     res = run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                   torch.device("cuda", 0), bench)
+                   torch.device("cuda", 0), bench,
+                   time_limits=(WARM_LIMIT_S, CHUNK_LIMIT_S))
     bad = forbidden_modules()
     if bad:
         log(f"[benchmark] loaded in this process: {', '.join(bad)}")
